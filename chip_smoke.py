@@ -13,15 +13,25 @@ Phases, each raising on failure (the script then exits non-zero):
     against the plain device loop;
  6. the main path, ell_fused tier: the same at d=512, float32;
  7. the CLI, ``python -m rabit_tpu_torch.learn.kmeans``;
- 8. time each kernel at the main path's shapes.
+ 8. time each k-means kernel at the main path's shapes;
+ 9. hold the GBDT histogram kernel against its plain version on the card
+    (2,097,152 rows x 64 features x 257 slots at 2, 16 and 64 channels in
+    bfloat16 and float32; a ragged shape; bins out of range);
+10. the GBDT main path: ``boosting.train`` on 2,097,152 rows x 64
+    features, 256 bins and a missing slot, depth 6, 4 rounds -- the
+    float32 kernel against the plain path, then the default bfloat16
+    kernel, with its launches counted against the level chunks;
+11. time the histogram kernel, its plain version and ``index_add_`` at
+    the main shape, and split ``train()``'s time.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
 (``{"kernels": [...]}``), and ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits 1 and prints no result.  Data is clustered so that every row's best
-centroid wins by a wide margin: counts and assignments are then
-compared exactly, and summation order alone separates kernel and plain
-sums.
+Without a CUDA device it exits 1 and prints no result.  K-means data is
+clustered so that every row's best centroid wins by a wide margin, and
+GBDT labels come from a planted tree whose splits win by wide margins:
+counts, assignments and the top splits are then compared exactly, and
+summation order alone separates kernel and plain sums.
 """
 from __future__ import annotations
 
@@ -40,6 +50,9 @@ K = 64
 MAIN_ROWS = 1 << 22               # 4,194,304: over the 2 GiB dense budget
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FMA
+F32_ADDS_PER_S = PEAK_OPS["float32"] / 2            # an FMA counts as two
+GBDT_ROWS, GBDT_FEATURES, GBDT_NBIN = 1 << 21, 64, 256
+GBDT_DEPTH, GBDT_ROUNDS = 6, 4
 # float32 sums against the plain version: the JAX tests' own bar
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-3
 # final centroids (unit rows) of run() against the plain device loop
@@ -185,6 +198,305 @@ def time_ms(torch, fn, warm=2, reps=5):
     return statistics.median(times)
 
 
+# ------------------------------------------------------------------ GBDT
+def gbdt_data(n, f, seed):
+    """Uniform features in [-1, 1) and labels from a planted depth-3 tree
+    on features 0-4 whose leaf rates lie far apart, so that the top three
+    levels' splits win by wide margins; 2% NaN in each of the last 8
+    features (missing values, none on a planted feature)."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, f), dtype=np.float32) * 2 - 1
+    left = x[:, 0] < 0.1
+    leaf = np.where(left, (x[:, 1] >= -0.3) * 2 + (x[:, 3] >= 0.2),
+                    4 + (x[:, 2] >= 0.4) * 2 + (x[:, 4] >= -0.5))
+    rate = np.array([0.05, 0.3, 0.6, 0.9, 0.15, 0.45, 0.75, 0.97],
+                    np.float32)
+    y = (rng.random(n, dtype=np.float32) < rate[leaf]).astype(np.float32)
+    x[:, f - 8:][rng.random((n, 8), dtype=np.float32) < 0.02] = np.nan
+    return x, y
+
+
+def level_chunks(tree, max_depth, chunk):
+    """Histogram launches train() issues for one tree: one for each chunk
+    of ``chunk`` live nodes at every level above ``max_depth``."""
+    depth, counts = {0: 0}, [0] * max_depth
+    for nid, node in enumerate(tree):        # parents precede children
+        if depth[nid] < max_depth:
+            counts[depth[nid]] += 1
+        if node.feature >= 0:
+            depth[node.left] = depth[node.right] = depth[nid] + 1
+    return sum(-(-c // chunk) for c in counts)
+
+
+def top_levels(tree, levels):
+    """(feature, threshold, default direction) of the nodes of the top
+    ``levels`` levels, breadth first."""
+    out, frontier = [], [0]
+    for _ in range(levels):
+        nxt = []
+        for nid in frontier:
+            node = tree[nid]
+            out.append((node.feature, node.bin_threshold, node.default_left))
+            if node.feature >= 0:
+                nxt += [node.left, node.right]
+        frontier = nxt
+    return out
+
+
+def round_losses(model, bins, y):
+    """Training log-loss after each round, the final accuracy and the
+    final predictions (margins summed as ``BoostedModel.margin`` does)."""
+    m = np.full(len(y), model.base_score, np.float32)
+    losses = []
+    for tree in model.trees:
+        m += model.learning_rate * model._tree_margin(tree, bins)
+        p = 1.0 / (1.0 + np.exp(-m.astype(np.float64)))
+        losses.append(float(-np.mean(y * np.log(p + 1e-12)
+                                     + (1 - y) * np.log(1 - p + 1e-12))))
+    return losses, float(((m > 0) == (y > 0.5)).mean()), p
+
+
+def check_hist(torch, hk, name, bins_t, w, nbin, cdt):
+    """Kernel against plain on the same inputs: the same bits on two
+    launches, sums within the float32 bar; returns max |err|."""
+    got = hk.hist_fused_multi(bins_t, w, nbin, compute_dtype=cdt)
+    again = hk.hist_fused_multi(bins_t, w, nbin, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    want = hk._hist_plain(bins_t, w, nbin, cdt)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite sums")
+    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL,
+                               msg=lambda m: f"{name}: {m}")
+    err = float((got - want).abs().max())
+    log(f"  {name}: ok (same bits twice, within rtol {SUM_RTOL} atol "
+        f"{SUM_ATOL}), max |kernel - plain| = {err:.3g}")
+    return err
+
+
+def gbdt_kernel_checks(torch, hk):
+    """Phase 9; returns the main-shape bins and the max errors."""
+    log("[9] GBDT histogram kernel vs plain")
+    n, f, nbin = GBDT_ROWS, GBDT_FEATURES, GBDT_NBIN + 1
+    g = torch.Generator(device="cuda").manual_seed(12)
+    bins_t = torch.randint(0, nbin, (f, n), generator=g, device="cuda",
+                           dtype=torch.int32)
+    errs = {}
+    for nw in (2, 16, 64):
+        w = torch.randn(nw, n, generator=g, device="cuda")
+        for cdt in (torch.bfloat16, torch.float32):
+            errs[nw, cdt] = check_hist(
+                torch, hk, f"n=2^21 f=64 nbin=257 nw={nw} {cdt}", bins_t, w,
+                nbin, cdt)
+    # bins -1, nbin and 1000 add nothing: at the main shape and ragged
+    odd = torch.tensor([-1, nbin, 1000], device="cuda", dtype=torch.int32)
+    bad = bins_t.clone()
+    hit = torch.rand(f, n, generator=g, device="cuda") < 0.01
+    bad[hit] = odd[torch.randint(0, 3, (int(hit.sum()),), generator=g,
+                                 device="cuda")]
+    check_hist(torch, hk, "n=2^21 f=64 nbin=257 nw=16 out-of-range bins",
+               bad, torch.randn(16, n, generator=g, device="cuda"), nbin,
+               torch.float32)
+    del bad, hit
+    n, f, nbin = 100003, 5, 7
+    small = torch.randint(0, nbin, (f, n), generator=g, device="cuda",
+                          dtype=torch.int32)
+    hit = torch.rand(f, n, generator=g, device="cuda") < 0.2
+    small[hit] = odd[torch.randint(0, 3, (int(hit.sum()),), generator=g,
+                                   device="cuda")]
+    w = torch.randn(3, n, generator=g, device="cuda")
+    for cdt in (torch.bfloat16, torch.float32):
+        check_hist(torch, hk, f"ragged n={n} f={f} nbin={nbin} nw=3 {cdt}",
+                   small, w, nbin, cdt)
+    got = hk.hist_fused_multi(small, w, nbin, compute_dtype=torch.float32)
+    kept = w.double() @ (~hit).double().T       # (nw, f) in-range mass
+    torch.testing.assert_close(got.sum(dim=2).double(), kept, rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+    log(f"  ragged: the mass of the {int(hit.sum())} out-of-range bins is "
+        "dropped")
+    return bins_t, errs
+
+
+def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
+    """Phase 10: boosting.train on the card, three ways."""
+    from rabit_tpu_torch.learn import boosting as gb
+    from rabit_tpu_torch.learn import histogram as bh
+
+    n, f = GBDT_ROWS, GBDT_FEATURES
+    t0 = time.perf_counter()
+    x, y = gbdt_data(n, f, seed=11)
+    log(f"[10] GBDT main path: n={n} f={f} nbin={GBDT_NBIN} (+1 missing "
+        f"slot) depth={GBDT_DEPTH} rounds={GBDT_ROUNDS} logistic (data "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bins, _cuts = bh.quantize(x, GBDT_NBIN)   # train()'s round-0 binning
+    binning_s = time.perf_counter() - t0
+    chunk = hk.max_channels(GBDT_NBIN + 1, f) // 2
+    runs = {}
+    real = hk.hist_fused_multi
+    for label, kw in (("f32 kernel", dict(compute_dtype="float32")),
+                      ("plain", dict(use_kernel=False)),
+                      ("bf16 kernel", {})):
+        events, stamps = [], []
+
+        def timed(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(*a, **k)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        rabit_tpu_torch.init(rabit_engine="empty")
+        commit = rabit_tpu_torch.checkpoint
+
+        def stamped(model):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            commit(model)
+
+        hk.hist_fused_multi, rabit_tpu_torch.checkpoint = timed, stamped
+        for counts in (kk.LAUNCHES, hk.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        t1 = time.perf_counter()
+        try:
+            model = gb.train(x, y, num_round=GBDT_ROUNDS,
+                             max_depth=GBDT_DEPTH, nbin=GBDT_NBIN, **kw)
+            torch.cuda.synchronize()
+        finally:
+            hk.hist_fused_multi, rabit_tpu_torch.checkpoint = real, commit
+            rabit_tpu_torch.finalize()
+        wall = time.perf_counter() - t1
+        launches = hk.LAUNCHES["gbdt_hist"]
+        want = (0 if label == "plain" else
+                sum(level_chunks(t, GBDT_DEPTH, chunk) for t in model.trees))
+        if launches != want or (label != "plain" and launches == 0) \
+                or any(kk.LAUNCHES.values()):
+            raise AssertionError(f"GBDT {label}: {launches} histogram "
+                                 f"launches for {want} level chunks, k-means "
+                                 f"{kk.LAUNCHES}")
+        losses, acc, pred = round_losses(model, bins, y)
+        b3_ms = sum(a.elapsed_time(b) for a, b in events)
+        rounds = np.diff([t1] + stamps)
+        runs[label] = dict(model=model, losses=losses, acc=acc, pred=pred,
+                           launches=launches, wall=wall, b3_ms=b3_ms,
+                           rounds=rounds)
+        log(f"    {label}: {wall:.2f} s ({', '.join(f'{r:.2f}' for r in rounds)}"
+            f" s by round), histogram launches {launches} (= level chunks), "
+            f"B3 calls {b3_ms:.1f} ms, log-loss by round "
+            f"{[round(v, 5) for v in losses]}, accuracy {acc:.4f}")
+    k32, plain, k16 = runs["f32 kernel"], runs["plain"], runs["bf16 kernel"]
+    # 1. float32 kernel against the plain path
+    top_k = top_levels(k32["model"].trees[0], 3)
+    top_p = top_levels(plain["model"].trees[0], 3)
+    if top_k != top_p:
+        raise AssertionError(f"first tree's top levels differ:\n{top_k}\n"
+                             f"{top_p}")
+    rel = max(abs(a - b) / b for a, b in zip(k32["losses"], plain["losses"]))
+    if rel > 1e-4:
+        raise AssertionError(f"float32 kernel log-loss off the plain path "
+                             f"by {rel:.3g} relative (bar 1e-4)")
+    dpred = float(np.abs(k32["pred"] - plain["pred"]).max())
+    log(f"    f32 kernel vs plain: top 3 levels identical {top_k}; log-loss "
+        f"within {rel:.3g} relative; max |d prediction| {dpred:.3g}")
+    # 2. the default bfloat16 kernel
+    leaves = [node.value for t in k16["model"].trees for node in t]
+    if not np.isfinite(leaves).all():
+        raise AssertionError("bf16 kernel: non-finite leaf values")
+    if any(b >= a for a, b in zip(k16["losses"], k16["losses"][1:])):
+        raise AssertionError(f"bf16 kernel: log-loss did not fall every "
+                             f"round: {k16['losses']}")
+    if abs(k16["acc"] - k32["acc"]) > 0.005:
+        raise AssertionError(f"bf16 kernel accuracy {k16['acc']:.4f} vs "
+                             f"{k32['acc']:.4f} (bar 0.5 points)")
+    log(f"    bf16 kernel: finite trees, log-loss falls every round, "
+        f"accuracy {k16['acc']:.4f} vs f32 {k32['acc']:.4f}")
+    return dict(launches=k16["launches"], wall=k16["wall"],
+                rounds=k16["rounds"], b3_ms=k16["b3_ms"], binning_s=binning_s,
+                plain_wall=plain["wall"], f32_wall=k32["wall"], bins=bins)
+
+
+def gbdt_timing(torch, hk, bins_t, errs, gbdt):
+    """Phase 11: B3 times at the main shape and train()'s time split;
+    returns the kernel's JSON entry."""
+    log("[11] GBDT histogram timing (CUDA events, median of 5 after 2 "
+        "warm-up calls), bfloat16 weights")
+    f, n = bins_t.shape
+    nbin = GBDT_NBIN + 1
+    g = torch.Generator(device="cuda").manual_seed(13)
+    by_nw = {}
+    for nw in (2, 16, 64):
+        w = torch.randn(nw, n, generator=g, device="cuda").to(torch.bfloat16)
+        ms = time_ms(torch, lambda: hk.hist_fused_multi(bins_t, w, nbin))
+        plain_ms = time_ms(
+            torch, lambda: hk._hist_plain(bins_t, w, nbin, torch.bfloat16),
+            1, 3)
+        library_ms = None
+        if nw <= 16:                 # the expanded source fits the card
+            idx = (bins_t.long() + torch.arange(f, device="cuda")[:, None]
+                   * nbin).reshape(-1)
+            src = w.float()[:, None, :].expand(nw, f, n).reshape(nw, -1)
+            acc = torch.zeros(nw, f * nbin, device="cuda")
+            library_ms = time_ms(torch, lambda: acc.index_add_(1, idx, src))
+            del idx, src, acc
+        nbytes = f * n * 4 + nw * n * 2 + nw * f * nbin * 4
+        adds = nw * f * n
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / F32_ADDS_PER_S
+        by_nw[nw] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=max(by_bytes, by_ops) * 1e3,
+                         bound_by="bytes" if by_bytes >= by_ops
+                         else "operations",
+                         max_abs_err=errs[nw, torch.bfloat16])
+        log(f"    nw={nw}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"index_add_ {'-' if library_ms is None else f'{library_ms:.3f}'}"
+            f" ms, bound {by_nw[nw]['bound_ms']:.3f} ms by "
+            f"{by_nw[nw]['bound_by']}")
+        del w
+    # train()'s time: host binning, uploads, B3, and the rest (numpy tree
+    # work, node masks on the device)
+    t0 = time.perf_counter()
+    up = torch.from_numpy(np.ascontiguousarray(gbdt["bins"].T)).cuda()
+    torch.cuda.synchronize()
+    bins_up_s = time.perf_counter() - t0
+    vec = np.zeros(GBDT_ROWS, np.float32)
+    t0 = time.perf_counter()
+    for _ in range(3):               # grad, hess and node_of_row
+        torch.from_numpy(vec).cuda()
+    torch.cuda.synchronize()
+    level_up_s = time.perf_counter() - t0
+    del up
+    levels = GBDT_ROUNDS * GBDT_DEPTH
+    wall, b3 = gbdt["wall"], gbdt["b3_ms"] / 1e3
+    uploads = bins_up_s + levels * level_up_s
+    rest = wall - gbdt["binning_s"] - uploads - b3
+    log(f"    train() bf16: {wall:.2f} s for {GBDT_ROUNDS} rounds "
+        f"({wall / GBDT_ROUNDS:.2f} s a round; rounds 2-{GBDT_ROUNDS} "
+        f"{np.mean(gbdt['rounds'][1:]):.2f} s each); host binning "
+        f"{gbdt['binning_s']:.2f} s, uploads {uploads:.3f} s (bins once "
+        f"{bins_up_s:.3f} s, {levels} levels x {level_up_s * 1e3:.1f} ms), "
+        f"B3 calls {b3:.3f} s ({100 * b3 / wall:.1f}% of train()), the rest "
+        f"(numpy tree work, masks) {rest:.2f} s; plain path train() "
+        f"{gbdt['plain_wall']:.2f} s, f32 kernel {gbdt['f32_wall']:.2f} s")
+    main = by_nw[16]
+    return dict(
+        name="gbdt_hist", route="cuda",
+        source="rabit_tpu_torch/ops/csrc/histogram.cu",
+        replaces="rabit_tpu/ops/histogram_kernel.py:102",
+        launches=gbdt["launches"], max_abs_err=main["max_abs_err"],
+        ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"],
+        library="torch.Tensor.index_add_ along the flattened (feature, "
+                "slot) axis",
+        shape=f"bins_t ({f}, {n}) int32, nw=16 bfloat16 weights, "
+              f"nbin={nbin}",
+        by_nw={str(k): v for k, v in by_nw.items()},
+        train_s=wall, train_b3_share=b3 / wall)
+
+
 def main() -> int:
     import torch
 
@@ -196,6 +508,7 @@ def main() -> int:
     import rabit_tpu_torch
     from rabit_tpu_torch.learn import kmeans as km
     from rabit_tpu_torch.ops import _build
+    from rabit_tpu_torch.ops import histogram_kernel as hk
     from rabit_tpu_torch.ops import kmeans_kernel as kk
 
     t_start = time.perf_counter()
@@ -467,6 +780,15 @@ def main() -> int:
         log(f"    {line['name']}: {line['ms']:.3f} ms (plain "
             f"{line['plain_ms']:.3f} ms, bound {line['bound_ms']:.3f} ms by "
             f"{line['bound_by']})")
+
+    # 9-11. the GBDT histogram kernel and the boosting main path
+    t0 = time.perf_counter()
+    bins_t, errs = gbdt_kernel_checks(torch, hk)
+    log(f"    phase 9 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gbdt = gbdt_main_path(torch, rabit_tpu_torch, kk, hk)
+    log(f"    phase 10 took {time.perf_counter() - t0:.1f} s")
+    lines.append(gbdt_timing(torch, hk, bins_t, errs, gbdt))
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)

@@ -2,14 +2,17 @@
 
 A second package beside :mod:`rabit_tpu`, mirroring its module names.
 It imports ``torch`` and ``numpy`` and nothing of the JAX package; the
-hot k-means statistics pass runs as hand-written CUDA kernels for the
-H100 (``ops/csrc``).  Entry points run on the card unless the caller
-asks for the CPU.  Ported so far: the world-of-one ``empty`` engine, the
-API, and k-means (:mod:`rabit_tpu_torch.learn.kmeans`).
+hot k-means statistics pass and the GBDT gradient histograms run as
+hand-written CUDA kernels for the H100 (``ops/csrc``).  Entry points run
+on the card unless the caller asks for the CPU.  Ported so far: the
+world-of-one ``empty`` engine, the API, k-means
+(:mod:`rabit_tpu_torch.learn.kmeans`) and gradient-boosted trees
+(:mod:`rabit_tpu_torch.learn.boosting`).
 """
 from rabit_tpu_torch.api import (
     allgather,
     allreduce,
+    allreduce_async,
     broadcast,
     checkpoint,
     device_epoch,
@@ -33,8 +36,8 @@ __version__ = "0.1.0"
 __all__ = [
     "init", "finalize", "initialized", "get_rank", "get_world_size",
     "get_processor_name", "is_distributed", "tracker_print", "allreduce",
-    "allgather", "broadcast", "load_checkpoint", "checkpoint",
-    "version_number", "device_epoch",
+    "allreduce_async", "allgather", "broadcast", "load_checkpoint",
+    "checkpoint", "version_number", "device_epoch",
     "MAX", "MIN", "SUM", "PROD", "BITOR", "BITAND", "BITXOR", "ReduceOp",
     "Serializable", "RabitError", "__version__",
 ]

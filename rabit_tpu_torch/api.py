@@ -89,6 +89,22 @@ def allreduce(data, op: ReduceOp = SUM,
     return out[0] if scalar else out
 
 
+def allreduce_async(data: np.ndarray, op: ReduceOp = SUM,
+                    prepare_fun: Optional[Callable[[], None]] = None,
+                    fuse: bool = True):
+    """Issue an allreduce without blocking; returns a
+    :class:`~rabit_tpu_torch.engine.interface.CollectiveHandle` whose
+    ``wait()`` yields the reduced array (the in-place semantics of
+    :func:`allreduce`).  ``fuse=False`` asks an engine that buckets small
+    ops to dispatch this one at once; engines without an async path run
+    the op at issue time and return a resolved handle.
+    """
+    eng = _engine_mod.get_engine()
+    check(isinstance(data, np.ndarray) and data.flags.c_contiguous,
+          "allreduce_async: need a C-contiguous numpy array")
+    return eng.allreduce_async(data, op, prepare_fun, fuse=fuse)
+
+
 def broadcast(data: Any, root: int) -> Any:
     """Broadcast a picklable object from ``root`` to all ranks."""
     eng = _engine_mod.get_engine()

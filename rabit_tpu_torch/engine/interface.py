@@ -14,6 +14,32 @@ from typing import Callable, Optional
 from rabit_tpu_torch.ops import ReduceOp
 
 
+class CollectiveHandle:
+    """Waitable result of an async collective (``allreduce_async``).
+
+    ``wait()`` returns the op's result, the same object the blocking call
+    would return; it is idempotent.  Only engines without a real async
+    path are ported, and they run the op at issue time, so every handle
+    is born resolved and callers use the handle API unconditionally.
+    """
+
+    def __init__(self, result) -> None:
+        self._result = result
+
+    @classmethod
+    def resolved(cls, result) -> "CollectiveHandle":
+        """A handle born complete (synchronous engines)."""
+        return cls(result)
+
+    def done(self) -> bool:
+        """True once the op has completed: always, for a resolved handle."""
+        return True
+
+    def wait(self, timeout: Optional[float] = None):
+        """The op's result (``timeout`` is for engines that overlap)."""
+        return self._result
+
+
 class Engine(ABC):
     """One collective-communication backend."""
 
@@ -45,6 +71,16 @@ class Engine(ABC):
                   prepare_fun: Optional[Callable[[], None]] = None):
         """In-place allreduce of ``buf``; ``prepare_fun`` fills it first
         unless a cached result is replayed during recovery."""
+
+    def allreduce_async(self, buf, op: ReduceOp,
+                        prepare_fun: Optional[Callable[[], None]] = None,
+                        fuse: bool = True) -> CollectiveHandle:
+        """Issue an in-place allreduce and return a waitable
+        :class:`CollectiveHandle`.  The default runs the op synchronously
+        and returns a resolved handle; ``fuse`` is for engines that
+        coalesce small ops into buckets.  ``buf`` must not be touched
+        between issue and ``wait()``."""
+        return CollectiveHandle.resolved(self.allreduce(buf, op, prepare_fun))
 
     @abstractmethod
     def broadcast(self, data: Optional[bytes], root: int) -> bytes:

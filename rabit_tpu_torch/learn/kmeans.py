@@ -28,6 +28,7 @@ from rabit_tpu_torch.ops import MAX, SUM
 from rabit_tpu_torch.ops.kmeans_kernel import (kmeans_ell_stats_fused,
                                                kmeans_stats_fused)
 from rabit_tpu_torch.utils.checks import check
+from rabit_tpu_torch.utils.device import resolve_device
 
 DEFAULT_ROW_BLOCK = 1024
 
@@ -88,16 +89,6 @@ def init_centroids(data: SparseMat, num_cluster: int, feat_dim: int,
     model = KMeansModel(cent)
     model.normalize()
     return model
-
-
-def _resolve_device(device) -> torch.device:
-    """None means the card.  Asking for CUDA without one is an error."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("rabit_tpu_torch k-means runs on a CUDA device "
-                           "and none is available; pass device='cpu' to "
-                           "run on the CPU")
-    return dev
 
 
 def _on_card(device: torch.device) -> bool:
@@ -256,7 +247,7 @@ def prepare_shard(idx, val, valid, feat_dim: int,
     grouped ELL rows for the ELL kernel) and ``ell`` (pre-blocked ELL
     rows for the plain path).
     """
-    device = _resolve_device(device)
+    device = resolve_device(device, "k-means")
     n = idx.shape[0]
     if n * (feat_dim + 1) * 4 <= budget:
         return ("dense", feat_dim,
@@ -362,7 +353,7 @@ def device_ell(idx, val, valid, row_block: int = DEFAULT_ROW_BLOCK,
                device=None):
     """Move ELL arrays to the device once, pre-blocked as
     (nb, row_block, ...)."""
-    device = _resolve_device(device)
+    device = resolve_device(device, "k-means")
     nb = idx.shape[0] // row_block
 
     def put(a, dtype):
@@ -400,7 +391,7 @@ def run(data: SparseMat, num_cluster: int, max_iter: int,
     in signed-hashed feature space.  ``compute_dtype="bfloat16"`` opens
     the half-width dense16 tier (similarity in bf16, sums in float32).
     """
-    device = _resolve_device(device)
+    device = resolve_device(device, "k-means")
     if hash_dim is not None:
         hidx, hval = hash_features(data.findex, data.fvalue, hash_dim)
         data = SparseMat(indptr=data.indptr, findex=hidx, fvalue=hval,

@@ -32,6 +32,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from rabit_tpu_torch.ops.reduce_ops import as_torch_dtype
+
 LAUNCHES = {"kmeans_stats_dense": 0, "kmeans_stats_ell": 0}
 
 _PLAIN_CHUNK_ROWS = 1 << 18
@@ -39,15 +41,6 @@ _TILE_ROWS = 32                   # rows per tile in the CUDA kernels
 _SM_SMEM_BYTES = 233472           # shared memory of one H100 SM
 _SMEM_PER_BLOCK_RESERVED = 1024
 _MAX_BLOCKS_PER_SM = 8            # 2048 threads / 256 per block
-
-
-def _as_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    if isinstance(dtype, str) and isinstance(getattr(torch, dtype, None),
-                                             torch.dtype):
-        return getattr(torch, dtype)
-    raise TypeError(f"not a torch dtype: {dtype!r}")
 
 
 def _normalized(centroids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -284,7 +277,7 @@ def kmeans_ell_stats_fused(centroids: torch.Tensor, idx: torch.Tensor,
                          f"(multiple of group={group})")
     if valid.shape != (n,):
         raise ValueError(f"valid shape {tuple(valid.shape)} != ({n},)")
-    cdt = _as_dtype(compute_dtype)
+    cdt = as_torch_dtype(compute_dtype)
     cn = _normalized(centroids.to(idx.device), cdt)
     idx = idx.reshape(n, nnz)
     val = val.reshape(n, nnz).float()

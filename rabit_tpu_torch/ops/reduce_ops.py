@@ -72,6 +72,16 @@ def _dtype_name(dtype) -> str:
     return np.dtype(dtype).name
 
 
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A ``torch.dtype`` from itself or its name (``"bfloat16"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and isinstance(getattr(torch, dtype, None),
+                                             torch.dtype):
+        return getattr(torch, dtype)
+    raise TypeError(f"not a torch dtype: {dtype!r}")
+
+
 def dtype_to_enum(dtype) -> DataType:
     """Map a torch or numpy dtype (or its name) to the wire enum."""
     name = _dtype_name(dtype)

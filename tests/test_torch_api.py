@@ -54,6 +54,25 @@ def test_allreduce_is_identity(engines):
                                   rabit_tpu.allreduce([1, 2]))
 
 
+def test_allreduce_async_is_a_resolved_identity(engines):
+    """The empty engine runs the op at issue time and hands back a
+    resolved handle, as the JAX package's does."""
+    called = []
+    a = np.arange(5, dtype=np.int32)
+    h = rabit_tpu_torch.allreduce_async(a, rabit_tpu_torch.MAX,
+                                        prepare_fun=lambda: called.append(1),
+                                        fuse=False)
+    assert h.done() and called == [1]
+    assert h.wait() is a and h.wait(timeout=0) is a
+    want = rabit_tpu.allreduce_async(np.arange(5, dtype=np.int32),
+                                     rabit_tpu.MAX, fuse=False).wait()
+    np.testing.assert_array_equal(h.wait(), want)
+    with pytest.raises(RabitError, match="C-contiguous numpy"):
+        rabit_tpu_torch.allreduce_async(np.zeros((4, 4))[:, ::2])
+    with pytest.raises(RabitError, match="C-contiguous numpy"):
+        rabit_tpu_torch.allreduce_async(torch.zeros(3))
+
+
 def test_broadcast_and_allgather(engines):
     obj = {"a": [1, 2], "b": "x"}
     assert rabit_tpu_torch.broadcast(obj, 0) == rabit_tpu.broadcast(obj, 0)
@@ -227,7 +246,11 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
     assert "BAD []" in proc.stdout, proc.stdout
     for mod in ("rabit_tpu_torch.learn.kmeans", "rabit_tpu_torch.convert",
                 "rabit_tpu_torch.ops.kmeans_kernel",
-                "rabit_tpu_torch.ops._build"):
+                "rabit_tpu_torch.ops._build",
+                "rabit_tpu_torch.ops.histogram_kernel",
+                "rabit_tpu_torch.learn.histogram",
+                "rabit_tpu_torch.learn.boosting",
+                "rabit_tpu_torch.utils.device"):
         assert f"'{mod}'" in proc.stdout
 
 
