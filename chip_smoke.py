@@ -22,7 +22,24 @@ Phases, each raising on failure (the script then exits non-zero):
     float32 kernel against the plain path, then the default bfloat16
     kernel, with its launches counted against the level chunks;
 11. time the histogram kernel, its plain version and ``index_add_`` at
-    the main shape, and split ``train()``'s time.
+    the main shape (at nw=64 over row chunks whose expanded source fits
+    the card, summed), and split ``train()``'s time;
+12. hold the ring allreduce kernel (B4) against its plain version, bit
+    for bit: SUM/MAX/MIN/PROD over 2, 3, 4 and 8 logical ranks on the
+    card, 1000, 257, (17, 9), 2^20 and 10^7 elements, float32, int32 and
+    bfloat16, MAX/MIN with NaN inputs, and launches of other shapes back
+    to back; time it at the data-parallel steps' shapes;
+13. the data-parallel steps of ``dryrun_multichip`` over 4 logical ranks
+    at the main paths' widths: dense16 k-means (B1 per rank, B4), ELL
+    k-means (B2, B4) and one GBDT level (B3 at nw=64, B4), each against
+    its world-1 result, and B4 on an integer-valued payload against the
+    exact sum, with the launches counted;
+14. ``rabit_tpu_torch.tools.ici_bench`` over 8 ranks at 10^4 .. 10^7 and
+    2^26 floats (psum, ring, pallas), and over 2 and 4 ranks at 10^7;
+15. ``rabit_tpu_torch.tools.kernel_experiments`` with its default specs
+    (every classify stage of the B1 variant study, each checked against
+    its plain version before it is timed), then each stage's kernel
+    timed alone.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -48,6 +65,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K = 64
 MAIN_ROWS = 1 << 22               # 4,194,304: over the 2 GiB dense budget
+DP_RANKS = 4                      # logical ranks of the data-parallel steps
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FMA
 F32_ADDS_PER_S = PEAK_OPS["float32"] / 2            # an FMA counts as two
@@ -419,6 +437,28 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
                 plain_wall=plain["wall"], f32_wall=k32["wall"], bins=bins)
 
 
+def index_add_ms(torch, bins_t, w, nbin, budget=1 << 33):
+    """The library call's time for B3's function: ``index_add_`` of the
+    weights, expanded to one source row per (feature, row), along the
+    flattened (feature, slot) axis.  Where that source passes ``budget``
+    bytes (nw=64: 34 GB) the rows go in chunks whose source fits, each
+    chunk's call timed apart and the times summed."""
+    f, n = bins_t.shape
+    nw = w.shape[0]
+    rows = max(1, min(n, budget // (nw * f * 4)))
+    acc = torch.zeros(nw, f * nbin, device="cuda")
+    off = torch.arange(f, device="cuda")[:, None] * nbin
+    total = 0.0
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        idx = (bins_t[:, lo:hi].long() + off).reshape(-1)
+        src = w[:, lo:hi].float()[:, None, :].expand(nw, f, hi - lo
+                                                      ).reshape(nw, -1)
+        total += time_ms(torch, lambda: acc.index_add_(1, idx, src))
+        del idx, src
+    return total
+
+
 def gbdt_timing(torch, hk, bins_t, errs, gbdt):
     """Phase 11: B3 times at the main shape and train()'s time split;
     returns the kernel's JSON entry."""
@@ -434,14 +474,7 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
         plain_ms = time_ms(
             torch, lambda: hk._hist_plain(bins_t, w, nbin, torch.bfloat16),
             1, 3)
-        library_ms = None
-        if nw <= 16:                 # the expanded source fits the card
-            idx = (bins_t.long() + torch.arange(f, device="cuda")[:, None]
-                   * nbin).reshape(-1)
-            src = w.float()[:, None, :].expand(nw, f, n).reshape(nw, -1)
-            acc = torch.zeros(nw, f * nbin, device="cuda")
-            library_ms = time_ms(torch, lambda: acc.index_add_(1, idx, src))
-            del idx, src, acc
+        library_ms = index_add_ms(torch, bins_t, w, nbin)
         nbytes = f * n * 4 + nw * n * 2 + nw * f * nbin * 4
         adds = nw * f * n
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / F32_ADDS_PER_S
@@ -497,6 +530,314 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
         train_s=wall, train_b3_share=b3 / wall)
 
 
+# ------------------------------------------------- ring allreduce (B4)
+def same_bits(torch, got, want) -> bool:
+    """Equal bits, except that any NaN matches any NaN."""
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(got)
+        if not torch.equal(nan, torch.isnan(want)):
+            return False
+        got, want = got.masked_fill(nan, 0), want.masked_fill(nan, 0)
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return torch.equal(got.view(width[got.element_size()]),
+                       want.view(width[want.element_size()]))
+
+
+def ring_case(torch, ndev, shape, dtype, g, nan=False):
+    if dtype == torch.int32:
+        return [torch.randint(-1000, 1000, shape, generator=g, device="cuda",
+                              dtype=torch.int32) for _ in range(ndev)]
+    xs = [torch.randn(shape, generator=g, device="cuda") for _ in range(ndev)]
+    if nan:
+        for x in xs:
+            x[torch.rand(shape, generator=g, device="cuda") < 0.01] = np.nan
+    return [x.to(dtype) for x in xs]
+
+
+def check_ring(torch, rg, name, xs, op):
+    got = rg.ring_allreduce_p2p(xs, op)
+    want = rg._ring_plain(xs, op)
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not same_bits(torch, a, b):
+            raise AssertionError(f"B4 {name} {op.name}: rank {r} differs "
+                                 "from the plain ring")
+    return float((got[0].double() - want[0].double()).nan_to_num().abs()
+                 .max())
+
+
+def ring_checks(torch, rg):
+    """Phase 12: B4 against its plain version, bit for bit; returns the
+    largest |kernel - plain| seen (0 when every bit agrees)."""
+    from rabit_tpu_torch.ops import ReduceOp
+
+    log("[12] ring allreduce kernel (B4) vs plain, bit for bit")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    ops = (ReduceOp.SUM, ReduceOp.MAX, ReduceOp.MIN, ReduceOp.PROD)
+    sizes = ((1000,), (257,), (17, 9), (1 << 20,), (10 ** 7,))
+    n, worst = 0, 0.0
+    for ndev in (2, 3, 4, 8):
+        for shape in sizes:
+            for dtype in (torch.float32, torch.int32, torch.bfloat16):
+                xs = ring_case(torch, ndev, shape, dtype, g)
+                for op in ops:
+                    worst = max(worst, check_ring(
+                        torch, rg, f"ndev={ndev} {shape} {dtype}", xs, op))
+                    n += 1
+                if dtype == torch.int32:   # integers: any order, one sum
+                    got = rg.ring_allreduce_p2p(xs)[0]
+                    if not torch.equal(got, torch.stack(xs).sum(0)
+                                       .to(torch.int32)):
+                        raise AssertionError(f"B4 int32 ndev={ndev} {shape}"
+                                             ": SUM off torch.sum")
+    log(f"    {n} cases: 4 ops x ranks 2/3/4/8 x {len(sizes)} shapes x "
+        "float32/int32/bfloat16, every rank's bits equal to the plain ring;"
+        " int32 SUM equal to torch.sum")
+    for ndev, shape in ((4, (1000,)), (8, (1 << 20,))):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = ring_case(torch, ndev, shape, dtype, g, nan=True)
+            for op in (ReduceOp.MAX, ReduceOp.MIN):
+                check_ring(torch, rg, f"NaN ndev={ndev} {shape} {dtype}", xs,
+                           op)
+                got = rg.ring_allreduce_p2p(xs, op)[0]
+                if not torch.equal(torch.isnan(got),
+                                   torch.isnan(torch.stack(xs)).any(0)):
+                    raise AssertionError("B4: NaN did not propagate")
+    log("    MAX/MIN with 1% NaN inputs: the same bits, NaN wherever a rank "
+        "held one")
+    a = ring_case(torch, 8, (10 ** 7,), torch.float32, g)
+    b = ring_case(torch, 3, (257,), torch.float32, g)
+    want_a, want_b = rg._ring_plain(a), rg._ring_plain(b)
+    for xs, want in ((a, want_a), (b, want_b), (a, want_a), (b, want_b)):
+        got = rg.ring_allreduce_p2p(xs)
+        if not all(same_bits(torch, p, q) for p, q in zip(got, want)):
+            raise AssertionError("B4: a launch after another shape differs")
+    log("    back to back (8 x 10^7, 3 x 257, again): the same bits as fresh")
+    return worst
+
+
+def ring_timing(torch, rg, shapes):
+    """B4's times at each {label: (ndev, size)}; the first is the main
+    entry of the JSON line."""
+    by_shape = {}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for label, (ndev, size) in shapes.items():
+        xs = ring_case(torch, ndev, (size,), torch.float32, g)
+        ms = time_ms(torch, lambda: rg.ring_allreduce_p2p(xs))
+        plain_ms = time_ms(torch, lambda: rg._ring_plain(xs), 1, 3)
+        library_ms = time_ms(torch, lambda: torch.stack(xs).sum(0))
+        nbytes = 2 * ndev * size * 4
+        adds = (ndev - 1) * size
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / F32_ADDS_PER_S
+        by_shape[label] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations")
+        log(f"    B4 {label} ({ndev} ranks x {size} float32): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.stack(xs).sum(0) "
+            f"{library_ms:.3f} ms, bound {by_shape[label]['bound_ms']:.4f} ms"
+            f" by {by_shape[label]['bound_by']}")
+    return by_shape
+
+
+# ------------------------------------------------ data-parallel steps
+def data_parallel(torch, results, bins_t, kk, hk, rg):
+    """Phase 13: dryrun_multichip's data-parallel steps over DP_RANKS
+    logical ranks at the main paths' widths; returns the launch counts
+    and B4's payload sizes."""
+    from rabit_tpu_torch.learn import histogram as bh
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.parallel import collectives as C
+    from rabit_tpu_torch.parallel.mesh import local_data_slice, make_mesh
+
+    ranks = make_mesh(devices=["cuda:0"] * DP_RANKS).rank_devices()
+    log(f"[13] data-parallel steps over {DP_RANKS} logical ranks "
+        f"({', '.join(map(str, ranks))})")
+    dense, ell = results["dense"], results["ell"]
+    x16, v16, cent16 = dense["x"], dense["valid"], dense["cent"]
+    idx_g, val_g, dvalid, d_pad, nnz = ell["payload"]
+    n_ell = idx_g.shape[0] * 4
+    flat_i, flat_v = idx_g.view(n_ell, nnz), val_g.view(n_ell, nnz)
+    cent_ell = torch.nn.functional.pad(ell["cent"],
+                                       (0, d_pad - ell["cent"].shape[1]))
+    f, n = bins_t.shape
+    nbin = GBDT_NBIN + 1
+    g = torch.Generator(device="cuda").manual_seed(23)
+    w = torch.randn(64, n, generator=g, device="cuda")
+    w[32:] = w[32:].abs()             # hessian channels: positive
+    w = w.to(torch.bfloat16)
+    # world-1 references first: their launches are comparisons
+    ref_dense = kk.kmeans_stats_fused(cent16, x16, v16)
+    ref_ell = kk.kmeans_ell_stats_fused(cent_ell, flat_i, flat_v, dvalid,
+                                        d_pad)
+    ref_hist = hk.hist_fused_multi(bins_t, w, nbin)
+    torch.cuda.synchronize()
+    rows = [local_data_slice(r, DP_RANKS, x16.shape[0])
+            for r in range(DP_RANKS)]
+    erows = [local_data_slice(r, DP_RANKS, n_ell) for r in range(DP_RANKS)]
+    cols = [local_data_slice(r, DP_RANKS, n) for r in range(DP_RANKS)]
+    shards = dict(
+        x=[x16[s].to(d) for s, d in zip(rows, ranks)],
+        v=[v16[s].to(d) for s, d in zip(rows, ranks)],
+        i=[flat_i[s].to(d) for s, d in zip(erows, ranks)],
+        val=[flat_v[s].to(d) for s, d in zip(erows, ranks)],
+        ev=[dvalid[s].to(d) for s, d in zip(erows, ranks)],
+        b=[bins_t[:, s].contiguous().to(d) for s, d in zip(cols, ranks)],
+        w=[w[:, s].contiguous().to(d) for s, d in zip(cols, ranks)])
+    torch.cuda.synchronize()
+    for counts in (kk.LAUNCHES, hk.LAUNCHES, rg.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    t0 = time.perf_counter()
+    # dense16 k-means step: B1 per rank, B4, centroid update
+    stats = [kk.kmeans_stats_fused(cent16.to(d), x, v)
+             for d, x, v in zip(ranks, shards["x"], shards["v"])]
+    dense_sum = rg.ring_allreduce_p2p(stats)
+    new16 = [km.centroid_update(cent16.to(d), s)
+             for d, s in zip(ranks, dense_sum)]
+    # ELL k-means step: B2 per rank, B4, centroid update
+    estats = [kk.kmeans_ell_stats_fused(cent_ell.to(d), i, v, ev, d_pad)
+              for d, i, v, ev in zip(ranks, shards["i"], shards["val"],
+                                     shards["ev"])]
+    ell_sum = rg.ring_allreduce_p2p(estats)
+    new_ell = [km.centroid_update(cent_ell.to(d), s)
+               for d, s in zip(ranks, ell_sum)]
+    # one GBDT level: B3 per rank at nw=64, B4
+    hists = [hk.hist_fused_multi(b, ww, nbin)
+             for b, ww in zip(shards["b"], shards["w"])]
+    hist_sum = rg.ring_allreduce_p2p(hists)
+    # the ring against psum on integer-valued floats (section 2b)
+    ints = [torch.randint(-8, 9, (512,), generator=g, device="cuda").float()
+            for _ in ranks]
+    int_sum = rg.ring_allreduce_p2p(ints)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**{k: v for k, v in kk.LAUNCHES.items() if v},
+                **hk.LAUNCHES, **rg.LAUNCHES}
+    want = {"kmeans_stats_dense": DP_RANKS, "kmeans_stats_ell": DP_RANKS,
+            "gbdt_hist": DP_RANKS, "ring_allreduce": 4}
+    if launches != want:
+        raise AssertionError(f"data-parallel launches {launches}, want "
+                             f"{want}")
+    log(f"    four steps in {wall:.3f} s, launches {launches}")
+    exact = torch.stack(ints).sum(0)
+    if not all(torch.equal(s, exact) for s in int_sum + C.allreduce(ints)):
+        raise AssertionError("integer-valued ring: off the exact sum")
+    log(f"    integer-valued {DP_RANKS} x 512: every rank's ring result and "
+        "collectives.allreduce equal the exact sum")
+    for name, per_rank, summed, ref in (
+            ("dense16 k-means", stats, dense_sum, ref_dense),
+            ("ELL k-means", estats, ell_sum, ref_ell),
+            ("GBDT level", hists, hist_sum, ref_hist)):
+        plain = rg._ring_plain(per_rank)
+        named = C.allreduce(per_rank)
+        for r in range(DP_RANKS):
+            if not same_bits(torch, summed[r], plain[r]):
+                raise AssertionError(f"{name}: rank {r} off the plain ring")
+        torch.testing.assert_close(summed[0], named[0], rtol=SUM_RTOL,
+                                   atol=SUM_ATOL)
+        if name == "GBDT level":
+            torch.testing.assert_close(summed[0], ref, rtol=SUM_RTOL,
+                                       atol=SUM_ATOL)
+            err = float((summed[0] - ref).abs().max())
+        else:
+            err = compare(torch, f"{name} vs world 1", summed[0], ref)
+        log(f"    {name}: every rank == plain ring (bits), within the sum "
+            f"bar of collectives.allreduce and of world 1 (max |err| "
+            f"{err:.3g})")
+    for name, new, cent, ref in (("dense16", new16, cent16, ref_dense),
+                                 ("ELL", new_ell, cent_ell, ref_ell)):
+        want_c = km.centroid_update(cent, ref)
+        for c in new:
+            if not torch.isfinite(c).all():
+                raise AssertionError(f"{name}: non-finite centroids")
+            torch.testing.assert_close(c, want_c, rtol=0, atol=CENT_ATOL)
+    h = hist_sum[0].cpu().numpy()
+    hr = ref_hist.cpu().numpy()
+    best = bh.split_gain(np.stack([h[0], h[32]], axis=-1)).argmax(axis=1)
+    best_ref = bh.split_gain(np.stack([hr[0], hr[32]], axis=-1)).argmax(
+        axis=1)
+    if not np.array_equal(best, best_ref):
+        raise AssertionError("GBDT level: best bins differ from world 1")
+    log(f"    centroid updates within {CENT_ATOL} of world 1 on every rank; "
+        f"split_gain's best bin per feature identical for all {f} features")
+    return launches, {"k-means stats": (DP_RANKS, stats[0].numel()),
+                      "GBDT histograms": (DP_RANKS, hists[0].numel())}
+
+
+# ------------------------------------------------------------- tools
+def ici_sweep(torch):
+    """Phase 14: the ici_bench tool over logical ranks."""
+    from rabit_tpu_torch.tools import ici_bench
+
+    log("[14] python -m rabit_tpu_torch.tools.ici_bench")
+    rows = []
+    for argv in (["--ndev", "8", "--impls", "psum,ring,pallas", "--sizes",
+                  "10000,100000,1000000,10000000,67108864"],
+                 ["--ndev", "2", "--impls", "psum,ring,pallas", "--sizes",
+                  "10000000"],
+                 ["--ndev", "4", "--impls", "psum,ring,pallas", "--sizes",
+                  "10000000"]):
+        log(f"    ici_bench {' '.join(argv)}")
+        rows += ici_bench.main(argv)
+    failed = [r for r in rows if r["seconds"] is None]
+    if failed:
+        raise AssertionError(f"ici_bench failed: {failed}")
+    return rows
+
+
+def variant_study(torch, kk):
+    """Phase 15: the kernel_experiments tool, then each classify stage's
+    kernel timed alone; returns the JSON entries."""
+    from rabit_tpu_torch.tools import kernel_experiments as ke
+
+    log("[15] python -m rabit_tpu_torch.tools.kernel_experiments")
+    for key in kk.LAUNCHES:
+        kk.LAUNCHES[key] = 0
+    study = ke.main([])
+    launches = dict(kk.LAUNCHES)
+    for mode in kk.VARIANTS:
+        if launches[f"p1_{mode}"] == 0:
+            raise AssertionError(f"P1 {mode}: no launch in the study")
+    log(f"    launches {launches}")
+    n, d, block = ke.N, ke.D, 2048
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    c = torch.randn(K, d, generator=g, device="cuda")
+    v = torch.ones(n, device="cuda")
+    cn = kk._normalized(c, torch.bfloat16)
+    lines = []
+    for mode in kk.VARIANTS:
+        err = ke.check_variant(mode, block, torch.bfloat16, c, x, v)
+        ms = time_ms(torch, lambda: kk.kmeans_stats_variant(c, x, v, mode,
+                                                            block))
+        plain_ms = time_ms(torch, lambda: kk._variant_plain(cn, x, v, mode,
+                                                            block), 1, 3)
+        nbytes = n * d * 2 + n * 4 + K * d * 2 + K * (d + 1) * 4
+        ops = 2 * n * K * d + (2 * n * K * d if mode in
+                               ("maxcmp", "simonly", "simonlyT") else n * d)
+        by_bytes = nbytes / HBM_BYTES_PER_S
+        by_ops = ops / PEAK_OPS["bfloat16"]
+        line = dict(
+            name=f"p1_{mode}", route="cuda",
+            source="rabit_tpu_torch/ops/csrc/kmeans_stats.cu",
+            replaces=("tools/kernel_experiments.py:138"
+                      if mode.endswith("T") else
+                      "tools/kernel_experiments.py:157"),
+            launches=launches[f"p1_{mode}"], max_abs_err=err, ms=ms,
+            kernel_ms=ms, plain_ms=plain_ms,
+            bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            library_ms=None, library="none: no single PyTorch call",
+            shape=f"x ({n}, {d}) bfloat16, k={K}, block={block}",
+            study_ms_per_iter={s: r["ms"] for s, r in study.items()
+                               if r["mode"] == mode})
+        log(f"    p1_{mode}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {line['bound_ms']:.3f} ms by {line['bound_by']}, max "
+            f"|kernel - plain| {err:.3g}")
+        lines.append(line)
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -510,6 +851,7 @@ def main() -> int:
     from rabit_tpu_torch.ops import _build
     from rabit_tpu_torch.ops import histogram_kernel as hk
     from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.ops import ring_allreduce as rg
 
     t_start = time.perf_counter()
     # 1. the card
@@ -789,6 +1131,43 @@ def main() -> int:
     gbdt = gbdt_main_path(torch, rabit_tpu_torch, kk, hk)
     log(f"    phase 10 took {time.perf_counter() - t0:.1f} s")
     lines.append(gbdt_timing(torch, hk, bins_t, errs, gbdt))
+
+    # 12-13. the ring allreduce kernel and the data-parallel steps
+    t0 = time.perf_counter()
+    ring_err = ring_checks(torch, rg)
+    log(f"    phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dp_launches, dp_shapes = data_parallel(torch, results, bins_t, kk, hk,
+                                           rg)
+    log(f"    phase 13 took {time.perf_counter() - t0:.1f} s")
+    del results, bins_t
+    shapes = {"GBDT histograms": dp_shapes["GBDT histograms"],
+              "k-means stats": dp_shapes["k-means stats"],
+              "8 x 10^7": (8, 10 ** 7)}
+    by_shape = ring_timing(torch, rg, shapes)
+    main_b4 = by_shape["GBDT histograms"]
+    lines.append(dict(
+        name="ring_allreduce", route="cuda",
+        source="rabit_tpu_torch/ops/csrc/ring_allreduce.cu",
+        replaces="rabit_tpu/ops/ring_allreduce.py:58",
+        launches=dp_launches["ring_allreduce"], max_abs_err=ring_err,
+        ms=main_b4["ms"], kernel_ms=main_b4["ms"],
+        plain_ms=main_b4["plain_ms"], bound_ms=main_b4["bound_ms"],
+        bound_by=main_b4["bound_by"], library_ms=main_b4["library_ms"],
+        library="torch.stack(xs).sum(0): the reduction, not fanned out to "
+                "the ranks",
+        shape=f"{shapes['GBDT histograms'][0]} ranks x "
+              f"{shapes['GBDT histograms'][1]} float32 (GBDT level "
+              "histograms), one card; ms includes staging and the wait",
+        by_shape=by_shape))
+
+    # 14-15. the tools
+    t0 = time.perf_counter()
+    ici_sweep(torch)
+    log(f"    phase 14 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lines += variant_study(torch, kk)
+    log(f"    phase 15 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)

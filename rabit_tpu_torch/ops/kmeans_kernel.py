@@ -11,7 +11,11 @@ counts accumulate in float32, weighted by the row's validity.
 * :func:`kmeans_stats_fused` (dense rows) replaces the Pallas kernel
   ``rabit_tpu/ops/kmeans_kernel.py:_stats_kernel``;
 * :func:`kmeans_ell_stats_fused` (padded-ELL rows) replaces
-  ``rabit_tpu/ops/kmeans_kernel.py:_ell_stats_kernel``.
+  ``rabit_tpu/ops/kmeans_kernel.py:_ell_stats_kernel``;
+* :func:`kmeans_stats_variant` runs the dense kernel with another
+  classify stage, one of :data:`VARIANTS`: the B1 variant study of
+  ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at :138 and
+  :157), whose modes replace B1's argmax stage and keep every other line.
 
 On a CUDA tensor each launches its kernel from ``csrc/kmeans_stats.cu``
 (built at first use) or raises; on a CPU tensor it runs the plain
@@ -34,7 +38,13 @@ import torch.nn.functional as F
 
 from rabit_tpu_torch.ops.reduce_ops import as_torch_dtype
 
-LAUNCHES = {"kmeans_stats_dense": 0, "kmeans_stats_ell": 0}
+# the classify stages of the variant study, in the CUDA source's order
+VARIANTS = ("argmax", "maxcmp", "simonly", "novalid", "argmaxT", "simonlyT",
+            "cheapassignT")
+_KEEP_ALIVE = ("simonlyT", "cheapassignT")
+
+LAUNCHES = {"kmeans_stats_dense": 0, "kmeans_stats_ell": 0,
+            **{f"p1_{m}": 0 for m in VARIANTS}}
 
 _PLAIN_CHUNK_ROWS = 1 << 18
 _TILE_ROWS = 32                   # rows per tile in the CUDA kernels
@@ -100,6 +110,52 @@ def _ell_stats_plain(cn: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     return out
 
 
+def _variant_core(cnf: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                  mode: str, block: int, row0: int,
+                  cdt: torch.dtype) -> torch.Tensor:
+    """One chunk of rows (starting at row ``row0``) through classify
+    stage ``mode``, as the JAX tool's kernel bodies compute it: the
+    one-hot (or weights) rounded to the compute dtype for the sums
+    product, unrounded for the counts, and the keep-alive anchor
+    ``sum sim[:, 0]`` added to every count."""
+    k = cnf.shape[0]
+    sim = x @ cnf.T
+    if mode == "maxcmp":
+        w = (sim >= sim.amax(dim=1, keepdim=True)).float()
+    elif mode == "simonly":
+        w = sim.clamp(0.0, 1.0)
+    elif mode == "simonlyT":
+        w = valid[:, None].expand(-1, k)
+    else:
+        if mode == "cheapassignT":
+            rows = torch.arange(row0, row0 + x.shape[0], device=x.device)
+            assign = (rows % block) % k
+        else:
+            assign = sim.argmax(dim=1)
+        w = F.one_hot(assign, k).float()
+    if mode not in ("novalid", "simonlyT"):
+        w = w * valid[:, None]
+    counts = w.sum(dim=0)
+    if mode in _KEEP_ALIVE:
+        counts = counts + sim[:, 0].sum()
+    sums = w.to(cdt).float().T @ x
+    return torch.cat([sums, counts[:, None]], dim=1)
+
+
+def _variant_plain(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                   mode: str, block: int) -> torch.Tensor:
+    """Plain version of :func:`kmeans_stats_variant`: ``cn`` normalised
+    and rounded to x's dtype, as for :func:`_stats_plain`."""
+    k, d = cn.shape
+    out = torch.zeros((k, d + 1), dtype=torch.float32, device=x.device)
+    cnf = cn.float()
+    for s in range(0, x.shape[0], _PLAIN_CHUNK_ROWS):
+        e = s + _PLAIN_CHUNK_ROWS
+        out += _variant_core(cnf, x[s:e].float(), valid[s:e].float(), mode,
+                             block, s, cn.dtype)
+    return out
+
+
 # ----------------------------------------------------------------- CUDA
 _LIB = None
 
@@ -117,9 +173,12 @@ def _lib() -> ctypes.CDLL:
         lib.kmeans_stats_ell.argtypes = [p, p, i, p, p, i, i, i, i, i, i,
                                          i, p, p, p]
         lib.kmeans_stats_ell.restype = i
-        lib.kmeans_stats_smem_bytes.argtypes = [i, i, i]
+        lib.kmeans_stats_variant.argtypes = [i, p, ll, i, p, ll, p, i, i, i,
+                                             i, i, i, i, p, p, p]
+        lib.kmeans_stats_variant.restype = i
+        lib.kmeans_stats_smem_bytes.argtypes = [i, i, i, i]
         lib.kmeans_stats_smem_bytes.restype = i
-        lib.kmeans_stats_max_dslice.argtypes = [i, i]
+        lib.kmeans_stats_max_dslice.argtypes = [i, i, i]
         lib.kmeans_stats_max_dslice.restype = i
         lib.kmeans_stats_error_string.argtypes = [i]
         lib.kmeans_stats_error_string.restype = ctypes.c_char_p
@@ -127,17 +186,18 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _plan(lib, device: torch.device, n: int, d: int, k: int):
+def _plan(lib, device: torch.device, n: int, d: int, k: int, mode: int = 0):
     """(grid_x, ny, dslice): a persistent grid of a few blocks per SM,
     and the accumulator's column split when (k, d) does not fit beside
-    the row tile in shared memory."""
-    widest = lib.kmeans_stats_max_dslice(d, k)
+    the row tile in shared memory.  ``mode`` is the classify stage (0 in
+    production, else a :data:`VARIANTS` index)."""
+    widest = lib.kmeans_stats_max_dslice(d, k, mode)
     if widest < 1:
         raise ValueError(f"kmeans stats kernel: d={d}, k={k} does not fit "
                          "the 227 KB of shared memory of one block")
     ny = -(-d // widest)
     dslice = -(-d // ny)
-    smem = lib.kmeans_stats_smem_bytes(d, k, dslice)
+    smem = lib.kmeans_stats_smem_bytes(d, k, dslice, mode)
     per_sm = max(1, min(_MAX_BLOCKS_PER_SM,
                         _SM_SMEM_BYTES // (smem + _SMEM_PER_BLOCK_RESERVED)))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -151,11 +211,15 @@ def _check_launch(lib, err: int, name: str) -> None:
                            f"({lib.kmeans_stats_error_string(err).decode()})")
 
 
-def _dense_cuda(cn: torch.Tensor, x: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+def _dense_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                mode: str | None = None, block: int = 1) -> torch.Tensor:
+    """The dense kernel: the production stage (``kmeans_stats_dense``)
+    when ``mode`` is None, else classify stage ``mode`` of the variant
+    study (``kmeans_stats_variant``)."""
+    name = "kmeans_stats_fused" if mode is None else "kmeans_stats_variant"
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kmeans_stats_fused on CUDA takes float32 or "
-                        f"bfloat16 rows, got {x.dtype}")
+        raise TypeError(f"{name} on CUDA takes float32 or bfloat16 rows, "
+                        f"got {x.dtype}")
     if x.stride(1) != 1:
         x = x.contiguous()
     valid = valid.to(device=x.device, dtype=torch.float32)
@@ -165,17 +229,22 @@ def _dense_cuda(cn: torch.Tensor, x: torch.Tensor,
     if n == 0:
         return out.zero_()
     lib = _lib()
-    grid_x, ny, dslice = _plan(lib, x.device, n, d, k)
+    code = 0 if mode is None else VARIANTS.index(mode)
+    grid_x, ny, dslice = _plan(lib, x.device, n, d, k, code)
     partial = torch.empty((grid_x, k, d + 1), dtype=torch.float32,
                           device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.kmeans_stats_dense(
-            x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
+    rows = (x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
             valid.data_ptr(), valid.stride(0), cn.contiguous().data_ptr(),
-            n, d, k, grid_x, ny, dslice, partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _check_launch(lib, err, "kmeans_stats_dense")
-    LAUNCHES["kmeans_stats_dense"] += 1
+            n, d, k)
+    with torch.cuda.device(x.device):
+        tail = (grid_x, ny, dslice, partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if mode is None:
+            err = lib.kmeans_stats_dense(*rows, *tail)
+        else:
+            err = lib.kmeans_stats_variant(code, *rows, block, *tail)
+    _check_launch(lib, err, name if mode is None else f"{name} {mode}")
+    LAUNCHES["kmeans_stats_dense" if mode is None else f"p1_{mode}"] += 1
     return out
 
 
@@ -213,6 +282,22 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _dense_inputs(centroids: torch.Tensor, x: torch.Tensor,
+                  valid: torch.Tensor):
+    """Checked dense inputs: (centroids normalised and rounded to the
+    compute dtype, x in it); the compute dtype is x's, or float32."""
+    k, d = centroids.shape
+    if x.ndim != 2 or x.shape[1] != d:
+        raise ValueError(f"x shape {tuple(x.shape)} does not match "
+                         f"centroids dim {d}")
+    if valid.shape != (x.shape[0],):
+        raise ValueError(f"valid shape {tuple(valid.shape)} != "
+                         f"({x.shape[0]},)")
+    cdt = x.dtype if x.is_floating_point() else torch.float32
+    x = x.to(cdt)
+    return _normalized(centroids.to(x.device), cdt), x
+
+
 # --------------------------------------------------------------- public
 def kmeans_stats_fused(centroids: torch.Tensor, x: torch.Tensor,
                        valid: torch.Tensor,
@@ -225,16 +310,7 @@ def kmeans_stats_fused(centroids: torch.Tensor, x: torch.Tensor,
     is accepted for the JAX package's signature; the kernel picks its
     own tiles.
     """
-    k, d = centroids.shape
-    if x.ndim != 2 or x.shape[1] != d:
-        raise ValueError(f"x shape {tuple(x.shape)} does not match "
-                         f"centroids dim {d}")
-    if valid.shape != (x.shape[0],):
-        raise ValueError(f"valid shape {tuple(valid.shape)} != "
-                         f"({x.shape[0]},)")
-    cdt = x.dtype if x.is_floating_point() else torch.float32
-    x = x.to(cdt)
-    cn = _normalized(centroids.to(x.device), cdt)
+    cn, x = _dense_inputs(centroids, x, valid)
     if _route(x) == "cuda":
         return _dense_cuda(cn, x, valid)
     return _stats_plain(cn, x, valid)
@@ -284,3 +360,29 @@ def kmeans_ell_stats_fused(centroids: torch.Tensor, idx: torch.Tensor,
     if _route(idx) == "cuda":
         return _ell_cuda(cn, idx, val, valid, d)
     return _ell_stats_plain(cn, idx, val, valid, d)
+
+
+def kmeans_stats_variant(centroids: torch.Tensor, x: torch.Tensor,
+                         valid: torch.Tensor, mode: str,
+                         block: int = 2048) -> torch.Tensor:
+    """(k, d+1) output of the dense stats pass with classify stage
+    ``mode`` (one of :data:`VARIANTS`), for the variant study.
+
+    ``argmax`` and ``argmaxT`` give :func:`kmeans_stats_fused`'s result;
+    ``maxcmp`` adds a row into every cluster tied at its maximum;
+    ``simonly`` weights every cluster by ``clip(sim, 0, 1)``; ``novalid``
+    ignores ``valid``; ``simonlyT`` adds every row into every cluster
+    with its validity; ``cheapassignT`` assigns row ``r`` to cluster
+    ``(r % block) % k``.  ``simonlyT`` and ``cheapassignT`` add
+    ``sum_r sim[r, 0]`` to every count (the JAX bodies' keep-alive
+    anchor).  Only ``cheapassignT`` reads ``block``.
+    """
+    if mode not in VARIANTS:
+        raise ValueError(f"unknown classify stage {mode!r}; one of "
+                         f"{VARIANTS}")
+    if block < 1:
+        raise ValueError(f"block={block} must be positive")
+    cn, x = _dense_inputs(centroids, x, valid)
+    if _route(x) == "cuda":
+        return _dense_cuda(cn, x, valid, mode, block)
+    return _variant_plain(cn, x, valid, mode, block)

@@ -250,7 +250,13 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
                 "rabit_tpu_torch.ops.histogram_kernel",
                 "rabit_tpu_torch.learn.histogram",
                 "rabit_tpu_torch.learn.boosting",
-                "rabit_tpu_torch.utils.device"):
+                "rabit_tpu_torch.utils.device",
+                "rabit_tpu_torch.parallel.mesh",
+                "rabit_tpu_torch.parallel.collectives",
+                "rabit_tpu_torch.ops.ring_allreduce",
+                "rabit_tpu_torch.tools.ici_bench",
+                "rabit_tpu_torch.tools.kernel_experiments",
+                "rabit_tpu_torch.tools.stats_ab"):
         assert f"'{mod}'" in proc.stdout
 
 
