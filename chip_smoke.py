@@ -7,28 +7,40 @@ Phases, each raising on failure (the script then exits non-zero):
  1. report the card (name, power limit) and turn TF32 off;
  2. build the CUDA kernels from ``rabit_tpu_torch/ops/csrc``;
  3. hold the dense stats kernel against its plain version on the card;
- 4. hold the ELL stats kernel against its plain version on the card;
+ 4. hold the ELL stats kernel against its plain version on the card: the
+    main shape, then edge cases (2-4 duplicate indices, all-pad rows,
+    rows of validity 0, out-of-range indices carrying values) at nnz 16,
+    32, 64 and k 10, 64, 100, then wide rows (nnz 512 and 1024, staged in
+    device memory) and wide d (the accumulator in several column slices,
+    more slices than blocks of the grid's column), in float32 and
+    bfloat16, each launched twice for the same bits;
  5. the main path, dense16 tier: ``kmeans.run`` chained and per
     iteration on 4,194,304 clustered rows, d=256, bfloat16, checked
     against the plain device loop;
- 6. the main path, ell_fused tier: the same at d=512, float32;
+ 6. the main path, ell_fused tier: the same at d=512, float32, then
+    chained on 32,768 rows of 512 slots at d=32,768;
  7. the CLI, ``python -m rabit_tpu_torch.learn.kmeans``;
- 8. time each k-means kernel at the main path's shapes;
+ 8. time each k-means kernel at the main path's shapes (the ELL kernel in
+    bfloat16, the compute dtype the ell_fused tier runs, and in float32);
  9. hold the GBDT histogram kernel against its plain version on the card
     (2,097,152 rows x 64 features x 257 slots at 2, 16 and 64 channels in
     bfloat16 and float32; a ragged shape; bins out of range);
 10. the GBDT main path: ``boosting.train`` on 2,097,152 rows x 64
     features, 256 bins and a missing slot, depth 6, 4 rounds -- the
     float32 kernel against the plain path, then the default bfloat16
-    kernel, with its launches counted against the level chunks;
+    kernel, with its launches counted against the level chunks and by
+    channel count (nw = 2 x the level's nodes);
 11. time the histogram kernel, its plain version and ``index_add_`` at
-    the main shape (at nw=64 over row chunks whose expanded source fits
-    the card, summed), and split ``train()``'s time;
+    every level's channel count (``index_add_`` at the widest over row
+    chunks whose expanded source fits the card, summed), sum launches x
+    (time - bound) over the levels, and split ``train()``'s time;
 12. hold the ring allreduce kernel (B4) against its plain version, bit
     for bit: SUM/MAX/MIN/PROD over 2, 3, 4 and 8 logical ranks on the
     card, 1000, 257, (17, 9), 2^20 and 10^7 elements, float32, int32 and
-    bfloat16, MAX/MIN with NaN inputs, and launches of other shapes back
-    to back; time it at the data-parallel steps' shapes;
+    bfloat16, MAX/MIN with NaN inputs, rank views that are not 16-byte
+    aligned (``x[1:]``) and sizes that are not a multiple of the vector
+    width, and launches of other shapes back to back; time it at the
+    data-parallel steps' shapes, one call at a time and back to back;
 13. the data-parallel steps of ``dryrun_multichip`` over 4 logical ranks
     at the main paths' widths: dense16 k-means (B1 per rank, B4), ELL
     k-means (B2, B4) and one GBDT level (B3 at nw=64, B4), each against
@@ -188,16 +200,45 @@ def check_ell(torch, kk, name, cent, idx, val, valid, d, cdt):
     n, nnz = idx.shape
     flat = kk.kmeans_ell_stats_fused(cent, idx, val, valid, d,
                                      compute_dtype=cdt)
+    again = kk.kmeans_ell_stats_fused(cent, idx, val, valid, d,
+                                      compute_dtype=cdt)
     grouped = kk.kmeans_ell_stats_fused(
         cent, idx.view(n // 4, 4 * nnz), val.view(n // 4, 4 * nnz), valid,
         d, nnz=nnz, group=4, compute_dtype=cdt)
     torch.cuda.synchronize()
+    if not torch.equal(flat, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
     if not torch.equal(flat, grouped):
         raise AssertionError(f"{name}: flat and grouped layouts differ")
     want = kk._ell_stats_plain(kk._normalized(cent, cdt), idx, val, valid, d)
     err = compare(torch, name, flat, want)
-    log(f"  {name}: ok (flat == grouped), max |kernel - plain| = {err:.3g}")
-    return err
+    plan = kk._ell_plan(kk._ell_lib(), idx.device, n, d, cent.shape[0], nnz)
+    log(f"  {name}: ok (same bits twice, flat == grouped), max |kernel - "
+        f"plain| = {err:.3g}; grid {plan[0]} x {plan[1]}, {plan[2]} column "
+        f"slice(s), {plan[4]} row(s) a warp, row groups in "
+        f"{'device' if plan[5] else 'shared'} memory")
+    return plan
+
+
+def ell_edge_case(torch, n, d, nnz, k, seed):
+    """clustered_ell rows with the ELL kernel's edge cases: slots 1-3 of a
+    quarter of the rows repeat slot 0 (2-4 duplicates of one index),
+    every 97th row all pad slots, a tenth of the rows of validity 0, and
+    indices below 0 or at/above d that carry values (dropped)."""
+    cent, idx, val, valid = clustered_ell(torch, n, d, nnz, k, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows = torch.rand(n, generator=g, device="cuda")
+    for j, frac in ((1, 0.25), (2, 0.15), (3, 0.05)):
+        dup = rows < frac
+        idx[dup, j] = idx[dup, 0]
+    pad = torch.arange(n, device="cuda") % 97 == 0
+    idx[pad] = d
+    val[pad] = 0.0
+    valid[torch.rand(n, generator=g, device="cuda") < 0.1] = 0.0
+    r = torch.rand(n, nnz, generator=g, device="cuda")
+    idx[(r < 0.01) & ~pad[:, None]] = -3
+    idx[(r > 0.995) & ~pad[:, None]] = d + 11
+    return cent, idx, val, valid
 
 
 # -------------------------------------------------------------- timing
@@ -356,7 +397,7 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
     for label, kw in (("f32 kernel", dict(compute_dtype="float32")),
                       ("plain", dict(use_kernel=False)),
                       ("bf16 kernel", {})):
-        events, stamps = [], []
+        events, stamps, widths = [], [], []
 
         def timed(*a, **k):
             ev = (torch.cuda.Event(enable_timing=True),
@@ -365,6 +406,7 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
             out = real(*a, **k)
             ev[1].record()
             events.append(ev)
+            widths.append(int(a[1].shape[0]))     # nw: 2 x the level's nodes
             return out
 
         rabit_tpu_torch.init(rabit_engine="empty")
@@ -401,7 +443,8 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
         rounds = np.diff([t1] + stamps)
         runs[label] = dict(model=model, losses=losses, acc=acc, pred=pred,
                            launches=launches, wall=wall, b3_ms=b3_ms,
-                           rounds=rounds)
+                           rounds=rounds,
+                           by_nw={nw: widths.count(nw) for nw in set(widths)})
         log(f"    {label}: {wall:.2f} s ({', '.join(f'{r:.2f}' for r in rounds)}"
             f" s by round), histogram launches {launches} (= level chunks), "
             f"B3 calls {b3_ms:.1f} ms, log-loss by round "
@@ -432,9 +475,12 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
                              f"{k32['acc']:.4f} (bar 0.5 points)")
     log(f"    bf16 kernel: finite trees, log-loss falls every round, "
         f"accuracy {k16['acc']:.4f} vs f32 {k32['acc']:.4f}")
+    log(f"    bf16 kernel launches by channel count nw: "
+        f"{dict(sorted(k16['by_nw'].items()))}")
     return dict(launches=k16["launches"], wall=k16["wall"],
                 rounds=k16["rounds"], b3_ms=k16["b3_ms"], binning_s=binning_s,
-                plain_wall=plain["wall"], f32_wall=k32["wall"], bins=bins)
+                plain_wall=plain["wall"], f32_wall=k32["wall"], bins=bins,
+                by_nw=k16["by_nw"])
 
 
 def index_add_ms(torch, bins_t, w, nbin, budget=1 << 33):
@@ -468,7 +514,7 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
     nbin = GBDT_NBIN + 1
     g = torch.Generator(device="cuda").manual_seed(13)
     by_nw = {}
-    for nw in (2, 16, 64):
+    for nw in sorted({2, 16, 64} | set(gbdt["by_nw"])):
         w = torch.randn(nw, n, generator=g, device="cuda").to(torch.bfloat16)
         ms = time_ms(torch, lambda: hk.hist_fused_multi(bins_t, w, nbin))
         plain_ms = time_ms(
@@ -482,7 +528,8 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
                          bound_ms=max(by_bytes, by_ops) * 1e3,
                          bound_by="bytes" if by_bytes >= by_ops
                          else "operations",
-                         max_abs_err=errs[nw, torch.bfloat16])
+                         launches=gbdt["by_nw"].get(nw, 0),
+                         max_abs_err=errs.get((nw, torch.bfloat16)))
         log(f"    nw={nw}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"index_add_ {'-' if library_ms is None else f'{library_ms:.3f}'}"
             f" ms, bound {by_nw[nw]['bound_ms']:.3f} ms by "
@@ -513,6 +560,10 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
         f"B3 calls {b3:.3f} s ({100 * b3 / wall:.1f}% of train()), the rest "
         f"(numpy tree work, masks) {rest:.2f} s; plain path train() "
         f"{gbdt['plain_wall']:.2f} s, f32 kernel {gbdt['f32_wall']:.2f} s")
+    gap = sum(v["launches"] * (v["ms"] - v["bound_ms"])
+              for v in by_nw.values())
+    log(f"    B3 launches x (ms - bound) summed over the levels of train(): "
+        f"{gap:.1f} ms")
     main = by_nw[16]
     return dict(
         name="gbdt_hist", route="cuda",
@@ -527,7 +578,7 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
         shape=f"bins_t ({f}, {n}) int32, nw=16 bfloat16 weights, "
               f"nbin={nbin}",
         by_nw={str(k): v for k, v in by_nw.items()},
-        train_s=wall, train_b3_share=b3 / wall)
+        launches_x_gap_ms=gap, train_s=wall, train_b3_share=b3 / wall)
 
 
 # ------------------------------------------------- ring allreduce (B4)
@@ -604,6 +655,22 @@ def ring_checks(torch, rg):
                     raise AssertionError("B4: NaN did not propagate")
     log("    MAX/MIN with 1% NaN inputs: the same bits, NaN wherever a rank "
         "held one")
+    # rank views 4 bytes past a 16-byte boundary (the kernel's scalar
+    # path) and sizes that are not a multiple of its 16-byte vectors
+    m = 0
+    for ndev in (2, 3, 8):
+        for size in (255, 1001, (1 << 20) + 3):
+            for dtype in (torch.float32, torch.int32, torch.bfloat16):
+                whole = ring_case(torch, ndev, (size + 2,), dtype, g)
+                for xs in ([x[1:size + 1] for x in whole],
+                           [x[:size] for x in whole]):
+                    for op in ops:
+                        worst = max(worst, check_ring(
+                            torch, rg, f"views ndev={ndev} ({size},) {dtype}",
+                            xs, op))
+                        m += 1
+    log(f"    {m} cases of rank views at offset 1 and 0 (sizes 255, 1001, "
+        "2^20+3): the same bits")
     a = ring_case(torch, 8, (10 ** 7,), torch.float32, g)
     b = ring_case(torch, 3, (257,), torch.float32, g)
     want_a, want_b = rg._ring_plain(a), rg._ring_plain(b)
@@ -615,9 +682,26 @@ def ring_checks(torch, rg):
     return worst
 
 
+def back_to_back_ms(torch, fn, reps=50):
+    """Mean time of ``reps`` calls enqueued back to back, between two CUDA
+    events: the device's time where it, not the host, is the limit."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def ring_timing(torch, rg, shapes):
     """B4's times at each {label: (ndev, size)}; the first is the main
-    entry of the JSON line."""
+    entry of the JSON line.  ``ms`` is one call between two events (the
+    host's work included, as a data-parallel step sees it);
+    ``back_to_back_ms`` the mean of 50 calls in a row."""
     by_shape = {}
     g = torch.Generator(device="cuda").manual_seed(22)
     for label, (ndev, size) in shapes.items():
@@ -628,14 +712,18 @@ def ring_timing(torch, rg, shapes):
         nbytes = 2 * ndev * size * 4
         adds = (ndev - 1) * size
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, adds / F32_ADDS_PER_S
+        b2b = back_to_back_ms(torch, lambda: rg.ring_allreduce_p2p(xs))
+        b2b_lib = back_to_back_ms(torch, lambda: torch.stack(xs).sum(0))
         by_shape[label] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            back_to_back_ms=b2b, library_back_to_back_ms=b2b_lib,
             bound_ms=max(by_bytes, by_ops) * 1e3,
             bound_by="bytes" if by_bytes >= by_ops else "operations")
         log(f"    B4 {label} ({ndev} ranks x {size} float32): kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, torch.stack(xs).sum(0) "
-            f"{library_ms:.3f} ms, bound {by_shape[label]['bound_ms']:.4f} ms"
-            f" by {by_shape[label]['bound_by']}")
+            f"{ms:.4f} ms ({b2b:.4f} back to back), plain {plain_ms:.3f} ms, "
+            f"torch.stack(xs).sum(0) {library_ms:.4f} ms ({b2b_lib:.4f} back "
+            f"to back), bound {by_shape[label]['bound_ms']:.4f} ms by "
+            f"{by_shape[label]['bound_by']}")
     return by_shape
 
 
@@ -906,6 +994,28 @@ def main() -> int:
     for cdt in (torch.bfloat16, torch.float32):
         check_ell(torch, kk, f"n=2^20 d=512 nnz=32 k=64 {cdt}", cent, idx,
                   val, valid, 512, cdt)
+    plans = []
+    for n, d, nnz, k in ([(1 << 18, 512, nnz, k) for nnz in (16, 32, 64)
+                          for k in (10, 64, 100)]
+                         + [(1 << 16, 512, 512, 64), (1 << 16, 512, 512, 100),
+                            (1 << 14, 4096, 1024, 64),
+                            (1 << 18, 1024, 32, 64),
+                            (1 << 13, 32768, 32, 1000)]):
+        cent, idx, val, valid = ell_edge_case(torch, n, d, nnz, k,
+                                              60 + nnz + k + d)
+        for cdt in (torch.bfloat16, torch.float32):
+            plans.append(check_ell(
+                torch, kk, f"edge cases n={n} d={d} nnz={nnz} k={k} {cdt}",
+                cent, idx, val, valid, d, cdt))
+    # every layout of the kernel ran: row groups in shared and in device
+    # memory, several column slices, more slices than the grid's rows
+    for what, seen in (("device-memory row groups", any(p[5] for p in plans)),
+                       ("shared-memory row groups with several slices",
+                        any(not p[5] and p[2] > 1 for p in plans)),
+                       ("more slices than grid rows",
+                        any(p[2] > p[1] for p in plans))):
+        if not seen:
+            raise AssertionError(f"phase 4 never ran {what}")
     del cent, idx, val, valid
     log(f"    phase 4 took {time.perf_counter() - t0:.1f} s")
 
@@ -1007,7 +1117,42 @@ def main() -> int:
                                                 ).cuda(),
                           launches=runs["chained"][2]["kmeans_stats_ell"],
                           iters=runs["chained"][1])
-    del data, idx, val, valid
+    del data, idx, val, valid, shard
+    # rows wider than the shared-memory row groups take, at a d whose
+    # dense copy is over the dense budget
+    n_wide, d_wide, nnz_wide, n_it = 1 << 15, 1 << 15, 512, 3
+    data = sparse_clusters(n_wide, d_wide, nnz_wide, K, seed=11)
+    rabit_tpu_torch.init(rabit_engine="empty")
+    for key in kk.LAUNCHES:
+        kk.LAUNCHES[key] = 0
+    t1 = time.perf_counter()
+    model = km.run(data, K, n_it, device_chain=n_it, compute_dtype="float32")
+    torch.cuda.synchronize()
+    wide_launches = kk.LAUNCHES["kmeans_stats_ell"]
+    init = km.init_centroids(data, K, d_wide, seed=0)
+    rabit_tpu_torch.finalize()
+    log(f"    wide rows n={n_wide} d={d_wide} nnz={nnz_wide}: {n_it} iters "
+        f"in {time.perf_counter() - t1:.2f} s, {wide_launches} ELL launches")
+    if wide_launches < n_it:
+        raise AssertionError(f"ell_fused wide rows: kernel launched "
+                             f"{wide_launches} times for {n_it} iterations")
+    idx, val, _lab, valid = data.to_ell(pad_index=d_wide, row_block=1024)
+    shard = km.prepare_shard(idx, val, valid, d_wide, 1024,
+                             compute_dtype="float32")
+    if shard[0] != "ell_fused" or shard[2][4] != nnz_wide:
+        raise AssertionError(f"wide rows: expected the ell_fused tier at "
+                             f"nnz {nnz_wide}, got {shard[0]}")
+    ref = km.ell_chain(torch.from_numpy(init.centroids).cuda(), shard[2],
+                       d_wide, n_it, use_kernel=False).cpu().numpy()
+    err = float(np.abs(model.centroids - ref).max())
+    if not (np.isfinite(model.centroids).all()
+            and model.centroids.shape == (K, d_wide) and err <= CENT_ATOL):
+        raise AssertionError(f"ell_fused wide rows: centroids off the plain "
+                             f"loop by {err} (bar {CENT_ATOL})")
+    log(f"    wide rows: centroids within {err:.3g} of the plain loop")
+    results["ell"].update(wide_launches=wide_launches, wide_payload=shard[2],
+                          wide_cent=torch.from_numpy(model.centroids).cuda())
+    del data, idx, val, valid, shard
     log(f"    phase 6 took {time.perf_counter() - t0:.1f} s")
 
     # 7. the CLI
@@ -1071,37 +1216,70 @@ def main() -> int:
     n = idx_g.shape[0] * 4
     flat_i, flat_v = idx_g.view(n, nnz), val_g.view(n, nnz)
 
-    def ell_kernel():
-        return kk.kmeans_ell_stats_fused(cent, idx_g, val_g, dvalid, d_pad,
-                                         nnz=nnz)
-
-    cn = kk._normalized(cent, torch.bfloat16)
-    got = ell_kernel()
-    want = kk._ell_stats_plain(cn, flat_i, flat_v, dvalid, d_pad)
-    err = compare(torch, "ELL main-path shape", got, want)
-    ms = time_ms(torch, ell_kernel)
-    plain_ms = time_ms(
-        torch, lambda: kk._ell_stats_plain(cn, flat_i, flat_v, dvalid, d_pad),
-        1, 3)
     srt = flat_i.sort(dim=1).values
     real = int((flat_i < d_pad).sum())
     uniq = int(((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] < d_pad)).sum()
                + (srt[:, 0] < d_pad).sum())
+    # the slots read once, the sums written once; a merge add per real
+    # slot, 2k similarity operations and one sums FMA per distinct
+    # nonzero, all float32 on the CUDA cores
     nbytes = n * nnz * 8 + n * 4 + K * d_pad * 2 + K * (d_pad + 1) * 4
-    ops = real + 2 * K * uniq + uniq
+    ops = real + 2 * K * uniq + 2 * uniq
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    by_dtype = {}
+    for cdt, name in ((torch.bfloat16, "bfloat16"),
+                      (torch.float32, "float32")):
+        cn = kk._normalized(cent, cdt)
+
+        def ell_kernel():
+            return kk.kmeans_ell_stats_fused(cent, idx_g, val_g, dvalid, d_pad,
+                                             nnz=nnz, compute_dtype=cdt)
+
+        got = ell_kernel()
+        want = kk._ell_stats_plain(cn, flat_i, flat_v, dvalid, d_pad)
+        err = compare(torch, f"ELL main-path shape {name}", got, want)
+        ms = time_ms(torch, ell_kernel)
+        plain_ms = time_ms(
+            torch,
+            lambda: kk._ell_stats_plain(cn, flat_i, flat_v, dvalid, d_pad),
+            1, 3)
+        plan = kk._ell_plan(kk._ell_lib(), flat_i.device, n, d_pad, K, nnz)
+        by_dtype[name] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err,
+            column_slices=plan[2], rows_per_warp=plan[4])
+        log(f"    kmeans_stats_ell {name}: {ms:.3f} ms ({plan[2]} column "
+            f"slice(s), {plan[4]} rows a warp); plain {plain_ms:.3f} ms")
+    # the wide-row run's shape (row groups in device memory)
+    idx_w, val_w, valid_w, d_w, nnz_w = r["wide_payload"]
+    cent_w = torch.nn.functional.pad(r["wide_cent"],
+                                     (0, d_w - r["wide_cent"].shape[1]))
+    wide_ms = time_ms(torch, lambda: kk.kmeans_ell_stats_fused(
+        cent_w, idx_w, val_w, valid_w, d_w, nnz=nnz_w))
+    n_w = idx_w.shape[0] * 4
+    plan = kk._ell_plan(kk._ell_lib(), idx_w.device, n_w, d_w, K, nnz_w)
+    wide_bound_ms = (n_w * nnz_w * 8 + n_w * 4 + K * d_w * 2
+                     + K * (d_w + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"    kmeans_stats_ell wide rows ({n_w}, {nnz_w}), d={d_w}, "
+        f"bfloat16: {wide_ms:.3f} ms ({plan[2]} column slices, row groups "
+        f"in {'device' if plan[5] else 'shared'} memory; bytes bound "
+        f"{wide_bound_ms:.4f} ms)")
+    del r["wide_payload"], idx_w, val_w, valid_w
+    main = by_dtype["bfloat16"]
     lines.append(dict(
         name="kmeans_stats_ell", route="cuda",
-        source="rabit_tpu_torch/ops/csrc/kmeans_stats.cu",
+        source="rabit_tpu_torch/ops/csrc/kmeans_ell_stats.cu",
         replaces="rabit_tpu/ops/kmeans_kernel.py:134",
-        launches=r["launches"], iterations=r["iters"], max_abs_err=err,
-        ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                     ops / PEAK_OPS["bfloat16"]) * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                  >= ops / PEAK_OPS["bfloat16"] else "operations"),
+        launches=r["launches"], iterations=r["iters"],
+        wide_row_launches=r["wide_launches"], wide_row_ms=wide_ms,
+        wide_row_bound_ms=wide_bound_ms,
+        max_abs_err=main["max_abs_err"], ms=main["ms"], kernel_ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=max(by_bytes, by_ops) * 1e3,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
         library_ms=None, library="none: no single PyTorch call",
         shape=(f"ELL ({n}, {nnz}) int32+float32, d={d_pad}, k={K}, "
-               f"bfloat16 compute; {real} real slots, {uniq} distinct")))
+               f"bfloat16 compute (what the ell_fused tier runs); {real} "
+               f"real slots, {uniq} distinct"),
+        by_dtype=by_dtype))
     # the dense kernel at bench.py's shape too, both input dtypes
     n, d = 1 << 19, 256
     for dtype, name in ((torch.float32, "float32"),
@@ -1158,7 +1336,7 @@ def main() -> int:
                 "the ranks",
         shape=f"{shapes['GBDT histograms'][0]} ranks x "
               f"{shapes['GBDT histograms'][1]} float32 (GBDT level "
-              "histograms), one card; ms includes staging and the wait",
+              "histograms), one card; ms is one call with its host work",
         by_shape=by_shape))
 
     # 14-15. the tools

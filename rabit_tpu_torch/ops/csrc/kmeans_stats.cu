@@ -1,9 +1,11 @@
-// Cosine k-means statistics pass for Hopper (sm_90a): the (k, d+1) matrix
-// of per-cluster row sums with the counts in the last column.
+// Cosine k-means statistics pass over dense rows for Hopper (sm_90a): the
+// (k, d+1) matrix of per-cluster row sums with the counts in the last
+// column.
 //
-// Replaces the two Pallas TPU kernels of rabit_tpu/ops/kmeans_kernel.py:
-//   _stats_kernel      (dense rows, kmeans_stats_fused)      -> kmeans_stats_dense
-//   _ell_stats_kernel  (padded-ELL rows, kmeans_ell_stats_fused) -> kmeans_stats_ell
+// Replaces the Pallas TPU kernel rabit_tpu/ops/kmeans_kernel.py:_stats_kernel
+// (dense rows, kmeans_stats_fused) -> kmeans_stats_dense.  The padded-ELL
+// kernel (_ell_stats_kernel) has a sparse design of its own, in
+// kmeans_ell_stats.cu.
 //
 // Per row: similarity to every normalised centroid (f32 FMA over d), the
 // first index of the maximum, then the row (times its validity) added into
@@ -27,11 +29,6 @@
 //    atomics);
 //  * the similarity is a 16x16 thread grid, each thread a 2-row x 4-centroid
 //    register tile, with centroid chunks staged transposed in shared memory;
-//  * the ELL variant rounds each slot's value to the compute dtype, adds
-//    it into the zeroed f32 tile in slot order (duplicates add, indices >= d
-//    are pad slots and are dropped) and rounds the tile to the compute dtype
-//    again -- the TPU kernel's two roundings (before and after its densify
-//    product) -- then runs the same core;
 //  * when the (k, d) accumulator does not fit beside the tile, the columns
 //    split over gridDim.y and each column slice recomputes the similarity.
 //
@@ -115,14 +112,12 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// T is the compute dtype: x's dtype for dense rows, compute_dtype for ELL.
-// kMode is the classify stage (kArgmax in production); block is the row
-// block of kCheapT's assignment.
-template <typename T, bool kEll, int kMode>
+// T is x's dtype, the compute dtype.  kMode is the classify stage (kArgmax
+// in production); block is the row block of kCheapT's assignment.
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ x, long long ldx,
-             const int* __restrict__ idx, const float* __restrict__ val,
-             int nnz, const float* __restrict__ valid, long long ldv,
+             const float* __restrict__ valid, long long ldv,
              const T* __restrict__ cn, int n, int d, int k, int dslice,
              int block, float* __restrict__ partial) {
   extern __shared__ float smem[];
@@ -155,27 +150,10 @@ stats_kernel(const T* __restrict__ x, long long ldx,
     __syncthreads();                             // previous tile consumed
 
     // 1. stage the row tile in f32
-    if constexpr (kEll) {
-      for (int e = tid; e < kRows * ldt; e += kThreads) tile[e] = 0.f;
-      __syncthreads();
-      if (tid < kRows && row0 + tid < n) {
-        const long long base = (long long)(row0 + tid) * nnz;
-        float* tr = tile + tid * ldt;
-        for (int s = 0; s < nnz; ++s) {          // slot order: deterministic
-          const int i = idx[base + s];
-          if (i >= 0 && i < d) tr[i] += round_to<T>(val[base + s]);
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < kRows * ldt; e += kThreads)
-        tile[e] = round_to<T>(tile[e]);
-    } else {
-      for (int e = tid; e < kRows * d; e += kThreads) {
-        const int r = e / d, j = e - r * d;
-        const int row = row0 + r;
-        tile[r * ldt + j] =
-            row < n ? to_f(x[(long long)row * ldx + j]) : 0.f;
-      }
+    for (int e = tid; e < kRows * d; e += kThreads) {
+      const int r = e / d, j = e - r * d;
+      const int row = row0 + r;
+      tile[r * ldt + j] = row < n ? to_f(x[(long long)row * ldx + j]) : 0.f;
     }
     if (tid < kRows) {
       const int row = row0 + tid;
@@ -378,22 +356,21 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   out[e] = s;
 }
 
-template <typename T, bool kEll, int kMode = kArgmax>
-int launch(const T* x, long long ldx, const int* idx, const float* val,
-           int nnz, const float* valid, long long ldv, const T* cn, int n,
-           int d, int k, int grid_x, int ny, int dslice, float* partial,
-           float* out, cudaStream_t stream, int block = 1) {
+template <typename T, int kMode = kArgmax>
+int launch(const T* x, long long ldx, const float* valid, long long ldv,
+           const T* cn, int n, int d, int k, int grid_x, int ny, int dslice,
+           float* partial, float* out, cudaStream_t stream, int block = 1) {
   const size_t smem = smem_floats(d, k, dslice, kMode) * sizeof(float);
   if (n < 1 || d < 1 || k < 1 || grid_x < 1 || ny < 1 || dslice < 1 ||
       (long long)ny * dslice < d || smem > (size_t)kMaxSmemBytes ||
       block < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel<T, kEll, kMode>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      stats_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stats_kernel<T, kEll, kMode><<<dim3(grid_x, ny), kThreads, smem, stream>>>(
-      x, ldx, idx, val, nnz, valid, ldv, cn, n, d, k, dslice, block, partial);
+  stats_kernel<T, kMode><<<dim3(grid_x, ny), kThreads, smem, stream>>>(
+      x, ldx, valid, ldv, cn, n, d, k, dslice, block, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int m = k * (d + 1);
@@ -407,11 +384,10 @@ int launch_variant(const void* x, long long ldx, const void* valid,
                    long long ldv, const void* cn, int n, int d, int k,
                    int block, int grid_x, int ny, int dslice, void* partial,
                    void* out, cudaStream_t s) {
-  return launch<T, false, kMode>(
-      static_cast<const T*>(x), ldx, nullptr, nullptr, 0,
-      static_cast<const float*>(valid), ldv, static_cast<const T*>(cn), n, d,
-      k, grid_x, ny, dslice, static_cast<float*>(partial),
-      static_cast<float*>(out), s, block);
+  return launch<T, kMode>(
+      static_cast<const T*>(x), ldx, static_cast<const float*>(valid), ldv,
+      static_cast<const T*>(cn), n, d, k, grid_x, ny, dslice,
+      static_cast<float*>(partial), static_cast<float*>(out), s, block);
 }
 
 template <typename T>
@@ -468,16 +444,15 @@ int kmeans_stats_dense(const void* x, long long ldx, int x_bf16,
                        void* partial, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return launch<__nv_bfloat16, false>(
-        static_cast<const __nv_bfloat16*>(x), ldx, nullptr, nullptr, 0,
+    return launch<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), ldx,
         static_cast<const float*>(valid), ldv,
         static_cast<const __nv_bfloat16*>(cn), n, d, k, grid_x, ny, dslice,
         static_cast<float*>(partial), static_cast<float*>(out), s);
-  return launch<float, false>(
-      static_cast<const float*>(x), ldx, nullptr, nullptr, 0,
-      static_cast<const float*>(valid), ldv, static_cast<const float*>(cn), n,
-      d, k, grid_x, ny, dslice, static_cast<float*>(partial),
-      static_cast<float*>(out), s);
+  return launch<float>(
+      static_cast<const float*>(x), ldx, static_cast<const float*>(valid), ldv,
+      static_cast<const float*>(cn), n, d, k, grid_x, ny, dslice,
+      static_cast<float*>(partial), static_cast<float*>(out), s);
 }
 
 // The dense kernel with classify stage `mode` (Mode above; 0 is the
@@ -495,29 +470,6 @@ int kmeans_stats_variant(int mode, const void* x, long long ldx, int x_bf16,
                                            partial, out, s);
   return dispatch_variant<float>(mode, x, ldx, valid, ldv, cn, n, d, k,
                                  block, grid_x, ny, dslice, partial, out, s);
-}
-
-// idx: (n, nnz) int32, val: (n, nnz) f32 (the grouped (n/G, G*nnz) layout
-// is the same memory); valid: (n,) f32; cn: (k, d) normalised centroids in
-// the compute dtype (bf16 when cn_bf16), to which each densified row is
-// rounded.
-int kmeans_stats_ell(const void* idx, const void* val, int nnz,
-                     const void* valid, const void* cn, int cn_bf16, int n,
-                     int d, int k, int grid_x, int ny, int dslice,
-                     void* partial, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ip = static_cast<const int*>(idx);
-  const float* vp = static_cast<const float*>(val);
-  const float* valp = static_cast<const float*>(valid);
-  if (cn_bf16)
-    return launch<__nv_bfloat16, true>(
-        nullptr, 0, ip, vp, nnz, valp, 1,
-        static_cast<const __nv_bfloat16*>(cn), n, d, k, grid_x, ny, dslice,
-        static_cast<float*>(partial), static_cast<float*>(out), s);
-  return launch<float, true>(nullptr, 0, ip, vp, nnz, valp, 1,
-                             static_cast<const float*>(cn), n, d, k, grid_x,
-                             ny, dslice, static_cast<float*>(partial),
-                             static_cast<float*>(out), s);
 }
 
 }  // extern "C"

@@ -1,73 +1,58 @@
-// Ring allreduce over logical ranks for Hopper (sm_90a).
+// Ring allreduce over logical ranks on one card, for Hopper (sm_90a), as
+// one pass that folds every rank's element in the ring's order.
 //
 // Replaces the Pallas TPU kernel rabit_tpu/ops/ring_allreduce.py:_ring_kernel
 // (wrapper ring_allreduce_pallas): ndev-1 reduce-scatter hops, then ndev-1
-// all-gather hops, SUM/MAX/MIN/PROD, on a payload laid out as (ndev, chunk)
-// per rank.  Every rank's buffer and progress words are reached through a
-// table of peer pointers, so the same code serves ranks on one card (this
-// build) and, later, ranks on several cards (peer access or CUDA IPC).
+// all-gather hops, SUM/MAX/MIN/PROD, on a payload laid out in ndev chunks of
+// `chunk` elements (128-aligned, rounded by the wrapper's segmenting).
 //
-// What bounds it on an H100: bytes.  A reduce-scatter hop reads two chunk
-// slices and writes one, an all-gather hop reads one and writes one, so the
-// kernel moves 5(ndev-1) chunks a rank; the least the card could take is
-// one read of every input and one write of every output.
-// No arithmetic is worth counting.  Plain 16-byte loads and stores; TMA, the
-// copy engine and NVLink come later.
+// Why no hops: on one card every rank's buffer lies in the same device
+// memory, so the ring's hops, flags and waits buy nothing.  Its result is
+// fixed by arithmetic: element p falls in chunk c = p / chunk, whose
+// reduce-scatter starts at rank c and folds rank c+1, c+2, ... in turn, each
+// hop computing combine(mine, incoming).  So
+//     acc = x_c[p];  for j in 1..ndev-1:  acc = combine(x_{(c+j) % ndev}[p], acc)
+// is every rank's final element, bit for bit (bfloat16 rounded at every
+// step, as each hop rounds), and the all-gather only copies it out.
+//
+// What bounds it on an H100: bytes.  Each input element is read once and
+// each result written once to every rank's output row: 2 * ndev * size
+// elements, the least any allreduce that leaves a copy on every rank can
+// move.  No arithmetic is worth counting.
 //
 // Design:
-//  * one cooperative launch holds every rank: gridDim.y = ndev, and block
-//    (r, b) owns columns [b*cols, (b+1)*cols) of every chunk of rank r.  It
-//    talks only to block (r-1, b).  cudaLaunchCooperativeKernel refuses a
-//    grid whose blocks cannot all be resident, so no waiting block can be
-//    resident while the block it waits for is not;
-//  * pull, not push: at hop t rank r reads its left neighbour's chunk c
-//    (the chunk the TPU kernel's left rank would send) straight from the
-//    left's buffer and folds it into its own: out_r[c] = combine(out_r[c],
-//    out_left[c]) during reduce-scatter, out_r[c] = out_left[c] during the
-//    all-gather, in hop order, so every element is combined in the TPU
-//    kernel's order and the bits match its wrapper's;
-//  * signalling: after hop t each block stores launch_base + t + 1 to its
-//    progress word (__threadfence, then a release store); hop t > 0 of
-//    block (r, b) first waits, with acquire loads, until (r-1, b) has
-//    stored launch_base + t.  launch_base grows by 128 every launch, so a
-//    word left by an earlier launch never satisfies a later wait and the
-//    words are never reset;
-//  * why pull needs no credit: rank r at reduce-scatter hop s reads chunk
-//    c = r-1-s of its left neighbour, which the left rewrites only at
-//    all-gather hop s (global hop ndev-1+s).  Every hop waits for the left
-//    neighbour's previous hop, so hop ndev-1+s of the left rank depends,
-//    through ndev-1 links around the ring, on hop s of rank r having
-//    finished: r's read comes first.  In the all-gather, r reads chunks the
-//    left has finished and never writes again.  The TPU kernel needed two
-//    landing slots and acknowledgements because its sender wrote into the
-//    receiver; here nothing lands;
-//  * peer loads bypass L1 (__ldcg): a chunk read in the reduce-scatter is
-//    read again, changed, in the all-gather;
-//  * scope: ranks share one card, so fences and flags are gpu scope.  Ranks
-//    on separate cards need __threadfence_system and .sys loads and stores;
-//  * a wait that outlasts its clock64 budget (about a second) sets the error
-//    word and every block leaves; the wrapper raises.  A block also leaves
-//    as soon as it sees the error word set by another;
+//  * inputs are read in place through a __grid_constant__ table of the
+//    ranks' pointers; the output is one (ndev, ld_out) buffer whose rows
+//    are 16-byte aligned;
+//  * a 1-D grid strides over 16-byte vectors of the `size` real elements;
+//    chunks are multiples of 128 elements, so a vector never straddles two
+//    chunks.  Padding is never touched.  A scalar loop covers the tail and,
+//    when any rank's pointer is not 16-byte aligned, everything;
+//  * a thread loads the vectors of up to 8 ranks before folding them, so
+//    loads are in flight together rather than one per combine;
 //  * NaN: MAX and MIN propagate NaN as jnp.maximum/jnp.minimum do (fmaxf and
-//    fminf would drop it).  bfloat16 combines in float32 and rounds each hop
-//    to bfloat16, as jnp.add on bfloat16 does.  int32 SUM and PROD wrap.
+//    fminf would drop it).  bfloat16 combines in float32 and rounds each
+//    step to bfloat16, as jnp.add on bfloat16 does.  int32 SUM and PROD wrap.
+//
+// Across cards the same fold reads its peers over NVLink; it then needs
+// one start barrier on system-scope flags so that every rank's input is
+// ready (ROADMAP.md A6).  Here the stream orders the inputs' writers before
+// the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;            // 2048 threads an SM
 constexpr int kMaxRanks = 64;
-constexpr int kMaxCols = 1024;             // progress words per rank
+constexpr int kBatch = 8;                  // ranks loaded before folding
 
 enum Op { kMax = 0, kMin = 1, kSum = 2, kProd = 3 };   // ReduceOp codes
 enum Dtype { kF32 = 0, kBf16 = 1, kI32 = 2 };
 
-struct Peers {
-  void* buf[kMaxRanks];                    // rank r's (ndev, chunk) payload
-  unsigned long long* flag[kMaxRanks];     // rank r's kMaxCols progress words
+struct Ranks {
+  const void* x[kMaxRanks];                // rank r's flat input
 };
 
 template <int kOp>
@@ -96,135 +81,97 @@ struct Combine {
   }
 };
 
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
+// The chunk of element p; 32-bit division where the payload allows.
+__device__ __forceinline__ int chunk_of(long long p, long long chunk,
+                                        bool narrow) {
+  return narrow ? (int)((unsigned)p / (unsigned)chunk) : (int)(p / chunk);
 }
 
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-// Spin until *flag >= target; false if the budget ran out or another
-// block reported a failure.
-__device__ bool wait_for(const unsigned long long* flag,
-                         unsigned long long target, long long budget,
-                         volatile int* err) {
-  const long long t0 = clock64();
-  while (load_acquire(flag) < target) {
-    if (*err != 0) return false;
-    if (clock64() - t0 > budget) {
-      atomicExch(const_cast<int*>(err), 1);
-      return false;
+// The fold of element (or vector) V at offset p of chunk c, over ranks
+// c, c+1, ..., in the ring's order.
+template <typename V, typename F>
+__device__ __forceinline__ V fold(const Ranks& in, int ndev, int c,
+                                  long long p, F combine) {
+  V acc = __ldg(reinterpret_cast<const V*>(in.x[c]) + p);
+  for (int j0 = 1; j0 < ndev; j0 += kBatch) {
+    V buf[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      int r = c + j0 + u;
+      r = r >= ndev ? r - ndev : r;
+      if (j0 + u < ndev)
+        buf[u] = __ldg(reinterpret_cast<const V*>(in.x[r]) + p);
     }
-    __nanosleep(64);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j0 + u < ndev) acc = combine(buf[u], acc);
   }
-  return true;
+  return acc;
 }
 
 template <typename T, int kOp>
 __global__ void __launch_bounds__(kThreads)
-ring_kernel(const __grid_constant__ Peers peers, int ndev, long long chunk,
-            long long cols, unsigned long long base, long long budget,
-            int* err) {
+fold_kernel(const __grid_constant__ Ranks in, int ndev, long long size,
+            long long chunk, bool vectors, T* __restrict__ out,
+            long long ld_out) {
   constexpr int kVec = 16 / sizeof(T);
-  __shared__ int abort_flag;
-  const int r = blockIdx.y, b = blockIdx.x, tid = threadIdx.x;
-  const int left = (r + ndev - 1) % ndev;
-  T* mine = static_cast<T*>(peers.buf[r]);
-  const T* theirs = static_cast<const T*>(peers.buf[left]);
-  unsigned long long* my_flag = peers.flag[r] + b;
-  const unsigned long long* left_flag = peers.flag[left] + b;
-  const long long lo = (long long)b * cols;
-  const long long hi = lo + cols < chunk ? lo + cols : chunk;
-  const int nphase = ndev - 1;
-
-  for (int t = 0; t < 2 * nphase; ++t) {
-    if (t > 0) {                 // hop 0 reads the staged inputs
-      if (tid == 0)
-        abort_flag = !wait_for(left_flag, base + t, budget, err);
-      __syncthreads();
-      if (abort_flag) return;
-    }
-    const bool rs = t < nphase;
-    const int c = rs ? (r - t - 1 + 2 * ndev) % ndev
-                     : (r - (t - nphase) + 2 * ndev) % ndev;
-    T* dst = mine + (long long)c * chunk;
-    const T* src = theirs + (long long)c * chunk;
-    for (long long e = lo + (long long)tid * kVec; e < hi;
-         e += (long long)kThreads * kVec) {
-      const uint4 in = __ldcg(reinterpret_cast<const uint4*>(src + e));
-      if (rs) {
-        uint4 cur = *reinterpret_cast<const uint4*>(dst + e);
-        T* cv = reinterpret_cast<T*>(&cur);
-        const T* iv = reinterpret_cast<const T*>(&in);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool narrow = size <= 0x7fffffffLL;
+  const long long nvec = vectors ? size / kVec : 0;
+  for (long long v = first; v < nvec; v += stride) {
+    const long long p = v * kVec;
+    const int c = chunk_of(p, chunk, narrow);
+    const uint4 acc = fold<uint4>(in, ndev, c, v, [](uint4 a, uint4 b) {
+      T* av = reinterpret_cast<T*>(&a);
+      const T* bv = reinterpret_cast<const T*>(&b);
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) cv[i] = Combine<kOp>::f(cv[i], iv[i]);
-        *reinterpret_cast<uint4*>(dst + e) = cur;
-      } else {
-        *reinterpret_cast<uint4*>(dst + e) = in;
-      }
-    }
-    __syncthreads();             // every thread's stores precede the flag
-    if (tid == 0) {
-      __threadfence();
-      store_release(my_flag, base + t + 1);
-    }
+      for (int i = 0; i < kVec; ++i) av[i] = Combine<kOp>::f(av[i], bv[i]);
+      return a;
+    });
+    for (int r = 0; r < ndev; ++r)
+      *reinterpret_cast<uint4*>(out + r * ld_out + p) = acc;
+  }
+  for (long long p = nvec * kVec + first; p < size; p += stride) {
+    const int c = chunk_of(p, chunk, narrow);
+    const T acc = fold<T>(in, ndev, c, p, [](T a, T b) {
+      return Combine<kOp>::f(a, b);
+    });
+    for (int r = 0; r < ndev; ++r) out[r * ld_out + p] = acc;
   }
 }
 
 template <typename T, int kOp>
-int launch_typed(const Peers& peers, int ndev, long long chunk,
-                 unsigned long long base, long long budget, int* err,
+int launch_typed(const Ranks& in, int ndev, long long size, long long chunk,
+                 bool vectors, void* out, long long ld_out, int sms,
                  cudaStream_t stream) {
-  auto kernel = ring_kernel<T, kOp>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
   constexpr int kVec = 16 / sizeof(T);
-  const long long step = (long long)kThreads * kVec;
-  long long bx = (long long)per_sm * sms / ndev;
-  const long long need = (chunk + step - 1) / step;
-  if (bx > need) bx = need;
-  if (bx > kMaxCols) bx = kMaxCols;
-  if (bx < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  long long cols = (chunk + bx - 1) / bx;
-  cols = (cols + kVec - 1) / kVec * kVec;
-  bx = (chunk + cols - 1) / cols;
-  void* args[] = {const_cast<Peers*>(&peers), &ndev, &chunk, &cols,
-                  &base, &budget, &err};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                  dim3((unsigned)bx, ndev), dim3(kThreads),
-                                  args, 0, stream);
-  if (e != cudaSuccess) return (int)e;
+  const long long units = vectors ? size / kVec + size % kVec : size;
+  long long blocks = (units + kThreads - 1) / kThreads;
+  const long long most = (long long)sms * kBlocksPerSm;
+  if (blocks > most) blocks = most;
+  fold_kernel<T, kOp><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      in, ndev, size, chunk, vectors, static_cast<T*>(out), ld_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_op(int op, const Peers& peers, int ndev, long long chunk,
-              unsigned long long base, long long budget, int* err,
-              cudaStream_t s) {
+int launch_op(int op, const Ranks& in, int ndev, long long size,
+              long long chunk, bool vectors, void* out, long long ld_out,
+              int sms, cudaStream_t s) {
   switch (op) {
     case kMax:
-      return launch_typed<T, kMax>(peers, ndev, chunk, base, budget, err, s);
+      return launch_typed<T, kMax>(in, ndev, size, chunk, vectors, out,
+                                   ld_out, sms, s);
     case kMin:
-      return launch_typed<T, kMin>(peers, ndev, chunk, base, budget, err, s);
+      return launch_typed<T, kMin>(in, ndev, size, chunk, vectors, out,
+                                   ld_out, sms, s);
     case kSum:
-      return launch_typed<T, kSum>(peers, ndev, chunk, base, budget, err, s);
+      return launch_typed<T, kSum>(in, ndev, size, chunk, vectors, out,
+                                   ld_out, sms, s);
     case kProd:
-      return launch_typed<T, kProd>(peers, ndev, chunk, base, budget, err, s);
+      return launch_typed<T, kProd>(in, ndev, size, chunk, vectors, out,
+                                    ld_out, sms, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -238,32 +185,32 @@ const char* ring_allreduce_error_string(int err) {
 }
 
 int ring_allreduce_max_ranks() { return kMaxRanks; }
-int ring_allreduce_max_cols() { return kMaxCols; }
 
-// bufs[r]: rank r's (ndev, chunk) payload (16-byte aligned, chunk a
-// multiple of 128 elements), reduced in place; flags[r]: rank r's kMaxCols
-// progress words, each below base; err: one int32 on the card, 0 on entry.
-int ring_allreduce(const long long* bufs, const long long* flags, int ndev,
-                   long long chunk, int dtype, int op,
-                   unsigned long long base, long long budget, void* err,
-                   void* stream) {
-  if (ndev < 2 || ndev > kMaxRanks || chunk < 1 || chunk % 128 != 0)
+// xs[r]: rank r's flat input of `size` elements; out: (ndev, ld_out), each
+// row 16-byte aligned, row r receiving the result; chunk: the ring's chunk
+// (a multiple of 128 elements, ndev * chunk >= size); vectors: every xs[r]
+// is 16-byte aligned; sms: the card's SM count.
+int ring_allreduce(const long long* xs, int ndev, long long size,
+                   long long chunk, int vectors, int dtype, int op, void* out,
+                   long long ld_out, int sms, void* stream) {
+  if (ndev < 2 || ndev > kMaxRanks || size < 1 || chunk < 1 ||
+      chunk % 128 != 0 || (long long)ndev * chunk < size || ld_out < size ||
+      sms < 1)
     return (int)cudaErrorInvalidValue;
-  Peers peers = {};
-  for (int r = 0; r < ndev; ++r) {
-    peers.buf[r] = reinterpret_cast<void*>(bufs[r]);
-    peers.flag[r] = reinterpret_cast<unsigned long long*>(flags[r]);
-  }
+  Ranks in = {};
+  for (int r = 0; r < ndev; ++r) in.x[r] = reinterpret_cast<const void*>(xs[r]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* e = static_cast<int*>(err);
+  const bool v = vectors != 0;
   switch (dtype) {
     case kF32:
-      return launch_op<float>(op, peers, ndev, chunk, base, budget, e, s);
+      return launch_op<float>(op, in, ndev, size, chunk, v, out, ld_out, sms,
+                              s);
     case kBf16:
-      return launch_op<__nv_bfloat16>(op, peers, ndev, chunk, base, budget,
-                                      e, s);
+      return launch_op<__nv_bfloat16>(op, in, ndev, size, chunk, v, out,
+                                      ld_out, sms, s);
     case kI32:
-      return launch_op<int>(op, peers, ndev, chunk, base, budget, e, s);
+      return launch_op<int>(op, in, ndev, size, chunk, v, out, ld_out, sms,
+                            s);
   }
   return (int)cudaErrorInvalidValue;
 }

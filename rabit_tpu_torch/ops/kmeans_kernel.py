@@ -17,17 +17,23 @@ counts accumulate in float32, weighted by the row's validity.
   ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at :138 and
   :157), whose modes replace B1's argmax stage and keep every other line.
 
-On a CUDA tensor each launches its kernel from ``csrc/kmeans_stats.cu``
-(built at first use) or raises; on a CPU tensor it runs the plain
-version (``_stats_plain``, ``_ell_stats_plain``), which is also what the
-card's kernels are checked against.  ``LAUNCHES`` counts kernel launches.
+On a CUDA tensor each launches its kernel (the dense ones from
+``csrc/kmeans_stats.cu``, the ELL one from ``csrc/kmeans_ell_stats.cu``,
+built at first use) or raises; on a CPU tensor it runs the plain version
+(``_stats_plain``, ``_ell_stats_plain``), which is also what the card's
+kernels are checked against.  ``_ell_stats_sparse_plain`` mirrors the ELL
+kernel's sparse arithmetic (merge, gather-similarity, argmax,
+``index_add_``) for the CPU tests; nothing on the CUDA route calls it.
+``LAUNCHES`` counts kernel launches.
 
 What bounds the kernels on an H100, and what the design does about it,
-is set out at the top of the CUDA source: the similarity runs as float32
-FMAs on the CUDA cores, so they are bound by operations (and shared
-memory bandwidth), while each input byte is read from device memory
-once.  The TPU's layout padding (128-lane features, 16384-row tiles) is
-not needed: the kernels mask their own ragged edges.
+is set out at the top of each CUDA source: the dense similarity runs as
+float32 FMAs on the CUDA cores, so the dense kernels are bound by
+operations (and shared memory bandwidth), while each input byte is read
+from device memory once; the ELL kernel works on each row's nonzeros
+alone and is bound by the single read of its slots.  The TPU's layout
+padding (128-lane features, 16384-row tiles) is not needed: the kernels
+mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -47,10 +53,14 @@ LAUNCHES = {"kmeans_stats_dense": 0, "kmeans_stats_ell": 0,
             **{f"p1_{m}": 0 for m in VARIANTS}}
 
 _PLAIN_CHUNK_ROWS = 1 << 18
+_SPARSE_PLAIN_CHUNK_ROWS = 1 << 12
 _TILE_ROWS = 32                   # rows per tile in the CUDA kernels
 _SM_SMEM_BYTES = 233472           # shared memory of one H100 SM
 _SMEM_PER_BLOCK_RESERVED = 1024
 _MAX_BLOCKS_PER_SM = 8            # 2048 threads / 256 per block
+_ELL_WARPS = 32                   # warps in the ELL kernel's block
+_ELL_ROWS_PER_WARP = (4, 2, 1)    # rows a warp takes per row group
+_ELL_CLUSTER_CHUNK = 64           # its centroid columns pad to this
 
 
 def _normalized(centroids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -108,6 +118,59 @@ def _ell_stats_plain(cn: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         dense = _ell_densify(idx[s:e], val[s:e], d, cn.dtype)
         out += _stats_core(cnf, dense, valid[s:e].float())
     return out
+
+
+def _ell_merge(idx: torch.Tensor, val: torch.Tensor, d: int,
+               dtype: torch.dtype):
+    """Each row's nonzeros as the ELL kernel merges them: ``(cols,
+    vals)``, both (rows, nnz).  The first slot of each index in [0, d)
+    keeps its index and the float32 sum, in slot order, of its
+    duplicates' values rounded to ``dtype``, itself rounded to
+    ``dtype``; every other slot gets index -1 and value 0."""
+    i = idx.long()
+    live = (i >= 0) & (i < d)
+    v = val.to(dtype).float()
+    nnz = idx.shape[1]
+    same = (i[:, :, None] == i[:, None, :]) & live[:, :, None]
+    earlier = torch.ones(nnz, nnz, dtype=torch.bool,
+                         device=idx.device).tril(-1)
+    first = live & ~(same & earlier).any(dim=2)
+    later = ~earlier                        # slot j >= slot s
+    merged = torch.zeros_like(v)
+    for j in range(nnz):
+        take = same[:, :, j] & later[:, j]
+        merged = torch.where(take, merged + v[:, j:j + 1], merged)
+    merged = torch.where(first, merged.to(dtype).float(), 0.0)
+    return torch.where(first, i, -1), merged
+
+
+def _ell_stats_sparse_plain(cn: torch.Tensor, idx: torch.Tensor,
+                            val: torch.Tensor, valid: torch.Tensor,
+                            d: int) -> torch.Tensor:
+    """Plain mirror of the ELL kernel's sparse arithmetic: merge each
+    row's slots (:func:`_ell_merge`), score every centroid over the
+    merged nonzeros alone, take the first index of the maximum, and
+    ``index_add_`` the nonzeros (times validity) and the validity into
+    the assigned cluster.  ``cn`` (k, d) normalised and rounded to the
+    compute dtype, as for :func:`_ell_stats_plain`."""
+    k = cn.shape[0]
+    cnt = cn.float().T.contiguous()          # (d, k): one row per feature
+    sums = torch.zeros(k * d, dtype=torch.float32, device=idx.device)
+    counts = torch.zeros(k, dtype=torch.float32, device=idx.device)
+    for s in range(0, idx.shape[0], _SPARSE_PLAIN_CHUNK_ROWS):
+        e = s + _SPARSE_PLAIN_CHUNK_ROWS
+        cols, vals = _ell_merge(idx[s:e], val[s:e], d, cn.dtype)
+        keep = cols >= 0
+        sim = torch.zeros((cols.shape[0], k), dtype=torch.float32,
+                          device=idx.device)
+        for j in range(cols.shape[1]):
+            sim += vals[:, j:j + 1] * cnt[cols[:, j].clamp(min=0)]
+        assign = sim.argmax(dim=1)
+        w = valid[s:e].float()
+        flat = (assign[:, None] * d + cols)[keep]
+        sums.index_add_(0, flat, (w[:, None] * vals)[keep])
+        counts.index_add_(0, assign, w)
+    return torch.cat([sums.view(k, d), counts[:, None]], dim=1)
 
 
 def _variant_core(cnf: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
@@ -170,9 +233,6 @@ def _lib() -> ctypes.CDLL:
         lib.kmeans_stats_dense.argtypes = [p, ll, i, p, ll, p, i, i, i, i,
                                            i, i, p, p, p]
         lib.kmeans_stats_dense.restype = i
-        lib.kmeans_stats_ell.argtypes = [p, p, i, p, p, i, i, i, i, i, i,
-                                         i, p, p, p]
-        lib.kmeans_stats_ell.restype = i
         lib.kmeans_stats_variant.argtypes = [i, p, ll, i, p, ll, p, i, i, i,
                                              i, i, i, i, p, p, p]
         lib.kmeans_stats_variant.restype = i
@@ -203,6 +263,60 @@ def _plan(lib, device: torch.device, n: int, d: int, k: int, mode: int = 0):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid_x = max(1, min(-(-n // _TILE_ROWS), sms * per_sm))
     return grid_x, ny, dslice
+
+
+_ELL_LIB = None
+
+
+def _ell_lib() -> ctypes.CDLL:
+    global _ELL_LIB
+    if _ELL_LIB is None:
+        from rabit_tpu_torch.ops import _build
+
+        lib = _build.load("kmeans_ell_stats")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.kmeans_stats_ell.argtypes = [p, p, i, p, p, i, i, i, i, i, i, i,
+                                         i, i, i, i, p, p, p, p]
+        lib.kmeans_stats_ell.restype = i
+        lib.kmeans_ell_max_dslice.argtypes = [i] * 5
+        lib.kmeans_ell_max_dslice.restype = i
+        lib.kmeans_ell_scratch_bytes.argtypes = [i, i]
+        lib.kmeans_ell_scratch_bytes.restype = ctypes.c_longlong
+        lib.kmeans_ell_error_string.argtypes = [i]
+        lib.kmeans_ell_error_string.restype = ctypes.c_char_p
+        _ELL_LIB = lib
+    return _ELL_LIB
+
+
+def _ell_plan(lib, device: torch.device, n: int, d: int, k: int, nnz: int):
+    """(grid_x, grid_y, nslices, dslice, rows_per_warp, global_stage) for
+    the ELL kernel.  The row-group buffers lie in shared memory beside a
+    column slice of the accumulator, or (``global_stage``) in device
+    memory, which leaves all of the shared memory to the accumulator and
+    takes rows of any width.  The fewest column slices win, since every
+    slice re-reads, re-merges and re-classifies every row, while staging
+    in device memory costs one more write and read of the slots; then
+    shared memory; then the most rows per warp.  The grid holds one block
+    per SM (the kernel's 1024 threads fill its registers): ``grid_y`` of
+    them take the slices in turn, ``grid_x`` stride over the row
+    groups."""
+    best = None
+    for global_stage in (False, True):
+        for rpw in (1,) if global_stage else _ELL_ROWS_PER_WARP:
+            widest = lib.kmeans_ell_max_dslice(d, k, nnz, rpw,
+                                               int(global_stage))
+            if widest >= 1:
+                plan = (-(-d // widest), global_stage, -rpw)
+                best = plan if best is None else min(best, plan)
+    if best is None:
+        raise ValueError(f"kmeans ELL stats kernel: k={k} does not fit the "
+                         "227 KB of shared memory of one block")
+    nslices, global_stage, rpw = best[0], best[1], -best[2]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid_y = min(nslices, sms)
+    groups = -(-n // (_ELL_WARPS * rpw))
+    grid_x = max(1, min(groups, sms // grid_y))
+    return grid_x, grid_y, nslices, -(-d // nslices), rpw, global_stage
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -261,17 +375,31 @@ def _ell_cuda(cn: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     out = torch.empty((k, d + 1), dtype=torch.float32, device=idx.device)
     if n == 0:
         return out.zero_()
-    lib = _lib()
-    grid_x, ny, dslice = _plan(lib, idx.device, n, d, k)
+    lib = _ell_lib()
+    bf16 = cn.dtype == torch.bfloat16
+    grid_x, grid_y, nslices, dslice, rpw, global_stage = _ell_plan(
+        lib, idx.device, n, d, k, nnz)
+    kp = -(-k // _ELL_CLUSTER_CHUNK) * _ELL_CLUSTER_CHUNK
+    ct = torch.zeros((d, kp), dtype=cn.dtype, device=idx.device)
+    ct[:, :k] = cn.T
     partial = torch.empty((grid_x, k, d + 1), dtype=torch.float32,
                           device=idx.device)
+    scratch = None
+    if global_stage:
+        scratch = torch.empty(
+            grid_x * grid_y * lib.kmeans_ell_scratch_bytes(nnz, rpw),
+            dtype=torch.uint8, device=idx.device)
     with torch.cuda.device(idx.device):
         err = lib.kmeans_stats_ell(
             idx.data_ptr(), val.data_ptr(), nnz, valid.data_ptr(),
-            cn.contiguous().data_ptr(), int(cn.dtype == torch.bfloat16),
-            n, d, k, grid_x, ny, dslice, partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _check_launch(lib, err, "kmeans_stats_ell")
+            ct.data_ptr(), int(bf16), int(global_stage), n, d, k, kp, grid_x,
+            grid_y, nslices, dslice, rpw,
+            None if scratch is None else scratch.data_ptr(),
+            partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kmeans_stats_ell launch failed: CUDA error {err}"
+                           f" ({lib.kmeans_ell_error_string(err).decode()})")
     LAUNCHES["kmeans_stats_ell"] += 1
     return out
 
@@ -326,11 +454,12 @@ def kmeans_ell_stats_fused(centroids: torch.Tensor, idx: torch.Tensor,
 
     ``idx``/``val`` are flat (n, nnz) ELL arrays (pad slots carry an
     index >= d, or value 0), or — when ``nnz`` is passed — grouped
-    (n/G, G·nnz) arrays, which are the same memory.  Each row is
-    densified in float32 (duplicate indices add), rounded to
-    ``compute_dtype`` and put through the dense core.  ``group``, ``hi``
-    and ``block`` keep the JAX package's signature and validation (the
-    CUDA kernel needs neither the hi/lo split nor the row blocks).
+    (n/G, G·nnz) arrays, which are the same memory.  Each slot's value is
+    rounded to ``compute_dtype``, duplicate indices add in float32, the
+    sum is rounded to ``compute_dtype`` again, and the row is scored
+    against the centroids over its nonzeros.  ``group``, ``hi`` and
+    ``block`` keep the JAX package's signature and validation (the CUDA
+    kernel needs neither the hi/lo split nor the row blocks).
     """
     k, dc = centroids.shape
     if dc != d:

@@ -1,22 +1,22 @@
 """Ring allreduce over logical ranks: a CUDA kernel for Hopper and its
-plain PyTorch version.
+plain PyTorch versions.
 
 Counterpart of :mod:`rabit_tpu.ops.ring_allreduce`, whose Pallas kernel
 ``_ring_kernel`` (wrapper ``ring_allreduce_pallas``) runs ``ndev - 1``
 reduce-scatter hops and ``ndev - 1`` all-gather hops by remote DMA
 between chips.  Here a rank is one tensor of a list: every rank's tensor
 lies on one device, and :func:`ring_allreduce_p2p` returns each rank's
-reduced tensor.  The name says that it is not Pallas: the kernel in
-``csrc/ring_allreduce.cu`` reads its neighbour's buffer through a table
-of peer pointers, one cooperative launch holding every rank.
+reduced tensor.  The name says that it is not Pallas.
 
-Both versions lay the payload out as ``ring_allreduce_pallas`` does
-(:func:`pallas_chunk`) and combine ``combine(mine, incoming)`` in hop
-order, so they give its bits: an element's combine order depends only on
-the chunk it falls in.  On a CUDA tensor the wrapper launches the kernel
-or raises; on a CPU tensor it runs :func:`_ring_plain`, which is also
-what the card's kernel is checked against.  ``LAUNCHES`` counts kernel
-launches.
+On one card the ring's hops are pure overhead: its result is fixed by
+the chunk each element falls in (:func:`pallas_chunk`), and the kernel in
+``csrc/ring_allreduce.cu`` computes it in one pass that reads every
+rank's element once, folds in the ring's order and writes the result to
+every rank (:func:`_ring_fold_plain` is that order in PyTorch).  Both
+give ``ring_allreduce_pallas``'s bits.  On a CUDA tensor the wrapper
+launches the kernel or raises; on a CPU tensor it runs :func:`_ring_plain`
+(the hops themselves), which is also what the card's kernel is checked
+against.  ``LAUNCHES`` counts kernel launches.
 
 Ranks on more than one device (several cards) are not ported yet
 (ROADMAP.md): they raise ``NotImplementedError``.
@@ -37,9 +37,7 @@ _SUPPORTED = frozenset({ReduceOp.SUM, ReduceOp.MAX, ReduceOp.MIN,
 # segmenting moves elements between chunks, so it is kept for the layout
 _VMEM_BUDGET_BYTES = 8 << 20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-# a wait in the kernel gives up after this many SM clock cycles (~1 s)
-_SPIN_BUDGET_CYCLES = 1 << 31
-_LAUNCH_STRIDE = 128              # > the 2(ndev-1) hops of any launch
+_VECTOR_BYTES = 16                # the kernel's loads and stores
 
 
 def supported_ops():
@@ -80,17 +78,6 @@ def ring_hops(chunks: torch.Tensor, op) -> torch.Tensor:
     return chunks
 
 
-def stage(xs, chunk: int) -> torch.Tensor:
-    """(ndev, ndev * chunk) buffer: rank r's flat payload, zero padded."""
-    n, size = len(xs), xs[0].numel()
-    bufs = torch.empty((n, n * chunk), dtype=xs[0].dtype,
-                       device=xs[0].device)
-    bufs[:, size:].zero_()
-    for r, x in enumerate(xs):
-        bufs[r, :size].copy_(x.reshape(-1))
-    return bufs
-
-
 def _check_ranks(xs, op) -> None:
     if op not in _SUPPORTED:
         raise ValueError(f"ring_allreduce_p2p: unsupported op {op}")
@@ -116,93 +103,98 @@ def _ring_plain(xs, op=ReduceOp.SUM):
     shape."""
     n, shape, size = len(xs), xs[0].shape, xs[0].numel()
     chunk = pallas_chunk(size, n, xs[0].element_size())
-    bufs = stage(xs, chunk)
+    bufs = torch.zeros((n, n * chunk), dtype=xs[0].dtype,
+                       device=xs[0].device)     # each rank's payload, padded
+    for r, x in enumerate(xs):
+        bufs[r, :size].copy_(x.reshape(-1))
     ring_hops(bufs.view(n, n, chunk), op)
     return [bufs[r, :size].view(shape) for r in range(n)]
 
 
+def _ring_fold_plain(xs, op=ReduceOp.SUM):
+    """The kernel's order in plain PyTorch: element ``p`` of chunk
+    ``c = p // chunk`` is ``x_c``, then ``combine(x_{(c+j) % n}, acc)``
+    for ``j = 1 .. n-1``; a list of each rank's result in the input's
+    shape.  It gives :func:`_ring_plain`'s bits (the CPU tests hold the
+    two together)."""
+    n, shape, size = len(xs), xs[0].shape, xs[0].numel()
+    chunk = pallas_chunk(size, n, xs[0].element_size())
+    flat = torch.stack([x.reshape(-1) for x in xs])
+    p = torch.arange(size, device=flat.device)
+    c = p // chunk
+    acc = flat[c, p]
+    for j in range(1, n):
+        acc = apply_op_pairwise(op, flat[(c + j) % n, p], acc)
+    out = acc.expand(n, size).clone()
+    return [out[r].view(shape) for r in range(n)]
+
+
 # ----------------------------------------------------------------- CUDA
 _LIB = None
-
-
-class _CardState:
-    """One card's progress words (a row of columns per rank), error word
-    and launch count.  A launch's words run from ``launches * stride``
-    up, so words left by an earlier launch never satisfy a later wait and
-    are never reset."""
-
-    def __init__(self, lib, device: torch.device):
-        words = lib.ring_allreduce_max_ranks() * lib.ring_allreduce_max_cols()
-        self.flags = torch.zeros(words, dtype=torch.int64, device=device)
-        self.err = torch.zeros(1, dtype=torch.int32, device=device)
-        self.launches = 0
-
-
-_STATE: dict[int, _CardState] = {}     # by CUDA device index
+_MAX_RANKS = 0                         # the kernel's table, read from _LIB
+_SMS: dict[int, int] = {}              # SM count by CUDA device index
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
+    global _LIB, _MAX_RANKS
     if _LIB is None:
         from rabit_tpu_torch.ops import _build
 
         lib = _build.load("ring_allreduce")
-        p, i, ll, ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_ulonglong)
-        lib.ring_allreduce.argtypes = [ctypes.POINTER(ll),
-                                       ctypes.POINTER(ll), i, ll, i, i, ull,
-                                       ll, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ring_allreduce.argtypes = [ctypes.POINTER(ll), i, ll, ll, i, i,
+                                       i, p, ll, i, p]
         lib.ring_allreduce.restype = i
         lib.ring_allreduce_max_ranks.restype = i
-        lib.ring_allreduce_max_cols.restype = i
+        _MAX_RANKS = lib.ring_allreduce_max_ranks()
         lib.ring_allreduce_error_string.argtypes = [i]
         lib.ring_allreduce_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _state(lib, device: torch.device) -> _CardState:
-    key = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if key not in _STATE:
-        _STATE[key] = _CardState(lib, device)
-    return _STATE[key]
+def _sms(device: int) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _ring_cuda(xs, op):
-    dtype = xs[0].dtype
-    if dtype not in _DTYPE_CODES:
+    """Launch the fold kernel.  At the data plane's payloads the host's
+    work per call, not the kernel, is the cost, so this path does little
+    besides one allocation and one ctypes call."""
+    x0 = xs[0]
+    dtype = x0.dtype
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
         raise TypeError(f"ring_allreduce_p2p on CUDA takes float32, "
                         f"bfloat16 or int32, got {dtype}")
     lib = _lib()
-    n, shape, size = len(xs), xs[0].shape, xs[0].numel()
-    if n > lib.ring_allreduce_max_ranks():
+    n, shape, size = len(xs), x0.shape, x0.numel()
+    if n > _MAX_RANKS:
         raise ValueError(f"ring_allreduce_p2p: {n} ranks, the kernel takes "
-                         f"at most {lib.ring_allreduce_max_ranks()}")
-    device = xs[0].device
-    chunk = pallas_chunk(size, n, xs[0].element_size())
-    bufs = stage(xs, chunk)
-    st = _state(lib, device)
-    st.launches += 1
-    cols = lib.ring_allreduce_max_cols()
-    bases = (ctypes.c_longlong * n)(*[bufs[r].data_ptr() for r in range(n)])
-    words = (ctypes.c_longlong * n)(
-        *[st.flags.data_ptr() + 8 * r * cols for r in range(n)])
+                         f"at most {_MAX_RANKS}")
+    xs = [x if x.is_contiguous() else x.contiguous() for x in xs]
+    ptrs = [x.data_ptr() for x in xs]
+    itemsize = x0.element_size()
+    per_vec = _VECTOR_BYTES // itemsize
+    ld = -(-size // per_vec) * per_vec    # 16-byte aligned output rows
+    out = torch.empty((n, ld), dtype=dtype, device=x0.device)
+    device = out.device.index
     with torch.cuda.device(device):
-        code = lib.ring_allreduce(
-            bases, words, n, chunk, _DTYPE_CODES[dtype], int(op),
-            st.launches * _LAUNCH_STRIDE, _SPIN_BUDGET_CYCLES,
-            st.err.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"ring_allreduce launch failed: CUDA error {code} "
-                           f"({lib.ring_allreduce_error_string(code).decode()})")
+        err = lib.ring_allreduce(
+            (ctypes.c_longlong * n)(*ptrs), n, size,
+            pallas_chunk(size, n, itemsize),
+            not any(q % _VECTOR_BYTES for q in ptrs), code, int(op),
+            out.data_ptr(), ld, _sms(device),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_allreduce launch failed: CUDA error {err} "
+                           f"({lib.ring_allreduce_error_string(err).decode()})")
     LAUNCHES["ring_allreduce"] += 1
-    if int(st.err.item()) != 0:       # waits for the kernel
-        st.err.zero_()
-        raise RuntimeError("ring_allreduce: a rank waited past its spin "
-                           "budget for its left neighbour; the result is "
-                           "undefined")
-    return [bufs[r, :size].view(shape) for r in range(n)]
+    rows = (out if ld == size else out.narrow(1, 0, size)).unbind(0)
+    return list(rows) if len(shape) == 1 else [r.view(shape) for r in rows]
 
 
 # --------------------------------------------------------------- public
@@ -213,8 +205,9 @@ def ring_allreduce_p2p(xs, op=ReduceOp.SUM):
 
     The counterpart of ``ring_allreduce_pallas``, bit for bit: the same
     128-aligned, segment-rounded chunks and the same combine order.  On
-    the card the call waits for the kernel, so that a rank that never
-    hears from its neighbour raises here.
+    the card the results are views of one new ``(ndev, size)`` buffer
+    (rows padded to 16 bytes), the inputs are left as they are, and the
+    call returns without waiting for the kernel.
     """
     xs = list(xs)
     op = ReduceOp(op)
