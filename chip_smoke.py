@@ -6,7 +6,14 @@
 Phases, each raising on failure (the script then exits non-zero):
  1. report the card (name, power limit) and turn TF32 off;
  2. build the CUDA kernels from ``rabit_tpu_torch/ops/csrc``;
- 3. hold the dense stats kernel against its plain version on the card;
+ 3. hold the dense stats kernel (B1) against its plain version on the
+    card, with its launch plan's shared memory against the kernel
+    source's: the old shapes, then widths past 1,744 (2^18 x 2048,
+    3,001 x 2,050 at k=100, 2^13 x 32,768), k=1000 at d=256, rows in a
+    strided view (rows of d+1, as the chained float32 dense tier holds
+    them), and a tie across a 64-centroid chunk (centroid 67 a copy of
+    3, k=100) whose rows must all land on 3; each in float32 and
+    bfloat16, each launched twice for the same bits;
  4. hold the ELL stats kernel against its plain version on the card: the
     main shape, then edge cases (2-4 duplicate indices, all-pad rows,
     rows of validity 0, out-of-range indices carrying values) at nnz 16,
@@ -16,12 +23,16 @@ Phases, each raising on failure (the script then exits non-zero):
     bfloat16, each launched twice for the same bits;
  5. the main path, dense16 tier: ``kmeans.run`` chained and per
     iteration on 4,194,304 clustered rows, d=256, bfloat16, checked
-    against the plain device loop;
+    against the plain device loop; then ``kmeans.run`` at d=2048, three
+    chained iterations, on the dense16 tier (2^19 rows, bfloat16) and on
+    the chained float32 dense tier (2^17 rows);
  6. the main path, ell_fused tier: the same at d=512, float32, then
     chained on 32,768 rows of 512 slots at d=32,768;
  7. the CLI, ``python -m rabit_tpu_torch.learn.kmeans``;
  8. time each k-means kernel at the main path's shapes (the ELL kernel in
-    bfloat16, the compute dtype the ell_fused tier runs, and in float32);
+    bfloat16, the compute dtype the ell_fused tier runs, and in float32),
+    B1 also with its classify, fold and reduce stages apart and at
+    2^19 x 2048, and count the HMMA instructions in B1's SASS;
  9. hold the GBDT histogram kernel against its plain version on the card
     (2,097,152 rows x 64 features x 257 slots at 2, 16 and 64 channels in
     bfloat16 and float32; a ragged shape; bins out of range);
@@ -49,9 +60,9 @@ Phases, each raising on failure (the script then exits non-zero):
 14. ``rabit_tpu_torch.tools.ici_bench`` over 8 ranks at 10^4 .. 10^7 and
     2^26 floats (psum, ring, pallas), and over 2 and 4 ranks at 10^7;
 15. ``rabit_tpu_torch.tools.kernel_experiments`` with its default specs
-    (every classify stage of the B1 variant study, each checked against
-    its plain version before it is timed), then each stage's kernel
-    timed alone.
+    (every classify stage of the B1 variant study, on the previous B1
+    kernel of ``kmeans_stats.cu``, each checked against its plain
+    version before it is timed), then each stage's kernel timed alone.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -66,6 +77,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -102,16 +114,23 @@ def smi_line() -> str:
 
 
 # ------------------------------------------------------------------ data
-def clustered_dense(torch, n, d, k, dtype, seed):
+def clustered_dense(torch, n, d, k, dtype, seed, tie=None):
     """Rows near one of k random unit directions, and centroids near
     the same directions: cosine margins of ~0.9 against rounding noise
-    of ~1e-3."""
+    of ~1e-3.  ``tie=(a, b)``: centroid b is a copy of centroid a and
+    rows of cluster b move to a, so every row of a ties exactly between
+    a and b, and no row is left without a clear winner."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     basis = torch.randn(k, d, generator=g, device="cuda")
     basis /= basis.norm(dim=1, keepdim=True)
     label = torch.randint(0, k, (n,), generator=g, device="cuda")
     x = basis[label] + 0.02 * torch.randn(n, d, generator=g, device="cuda")
     cent = basis + 0.02 * torch.randn(k, d, generator=g, device="cuda")
+    if tie is not None:
+        a, b = tie
+        cent[b] = cent[a]
+        x[label == b] = (basis[a] + 0.02 * torch.randn(
+            int((label == b).sum()), d, generator=g, device="cuda"))
     valid = (torch.rand(n, generator=g, device="cuda") > 0.1).float()
     return cent, x.to(dtype), valid
 
@@ -183,7 +202,25 @@ def compare(torch, name, got, want):
     return float((got - want).abs().max())
 
 
+def dense_plan(torch, kk, x, k):
+    """B1's plan for x and k, checked against the shared memory the
+    kernel's source states for each stage."""
+    n, d = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kk._dense_plan(n, d, k, x.dtype, sms)
+    lib = kk._dense_lib()
+    bf16 = int(x.dtype == torch.bfloat16)
+    for stage, want in ((0, plan.classify_smem), (1, plan.fold_smem)):
+        got = lib.kmeans_stats_dense_smem_bytes(stage, bf16, k, plan.dt)
+        if got != want:
+            raise AssertionError(f"B1 plan for ({n}, {d}) k={k}: stage "
+                                 f"{stage} shared memory {want} B, the "
+                                 f"kernel's source says {got} B")
+    return plan
+
+
 def check_dense(torch, kk, name, cent, x, valid):
+    plan = dense_plan(torch, kk, x, cent.shape[0])
     got = kk.kmeans_stats_fused(cent, x, valid)
     again = kk.kmeans_stats_fused(cent, x, valid)
     torch.cuda.synchronize()
@@ -191,9 +228,92 @@ def check_dense(torch, kk, name, cent, x, valid):
         raise AssertionError(f"{name}: two launches gave different bits")
     want = kk._stats_plain(kk._normalized(cent, x.dtype), x, valid)
     err = compare(torch, name, got, want)
-    log(f"  {name}: ok (counts exact, sums within rtol {SUM_RTOL} atol "
-        f"{SUM_ATOL}), max |kernel - plain| = {err:.3g}")
-    return err
+    log(f"  {name}: ok (same bits twice, counts exact, sums within rtol "
+        f"{SUM_RTOL} atol {SUM_ATOL}), max |kernel - plain| = {err:.3g}; "
+        f"fold {plan.tiles} x {plan.dt} columns by {plan.chunks} chunks of "
+        f"{plan.chunk_rows} rows")
+    return got, err
+
+
+def dense_kernel_checks(torch, kk):
+    """Phase 3: B1 against its plain version at the old shapes, then the
+    widths C1 broke (d past 1,744), ragged shapes, rows in a strided view
+    (the chained float32 dense tier's layout), a tie across a
+    64-centroid chunk, and k=1000; each in float32 and bfloat16."""
+    log("[3] dense stats kernel vs plain")
+    for dtype in (torch.float32, torch.bfloat16):
+        cent, x, valid = clustered_dense(torch, 1 << 19, 256, K, dtype, 3)
+        check_dense(torch, kk, f"n=2^19 d=256 k=64 {dtype}", cent, x, valid)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(300, 100, generator=g, device="cuda")
+    cent = torch.randn(10, 100, generator=g, device="cuda")
+    valid = (torch.rand(300, generator=g, device="cuda") > 0.1).float()
+    for dtype in (torch.float32, torch.bfloat16):
+        check_dense(torch, kk, f"ragged n=300 d=100 k=10 {dtype}", cent,
+                    x.to(dtype), valid)
+    cent = torch.randn(3, 100, generator=g, device="cuda").abs()
+    x = -torch.randn(64, 100, generator=g, device="cuda").abs()
+    got_neg = kk.kmeans_stats_fused(cent, x, torch.ones(64, device="cuda"))
+    check_dense(torch, kk, "all-negative n=64 d=100 k=3", cent, x,
+                torch.ones(64, device="cuda"))
+    assert float(got_neg[:, -1].sum()) == 64.0
+    for dtype in (torch.float32, torch.bfloat16):
+        cent, x, valid = clustered_dense(torch, 1 << 18, 512, K, dtype, 5)
+        check_dense(torch, kk, f"n=2^18 d=512 k=64 {dtype}", cent, x, valid)
+    for n, d, k, seed in ((1 << 18, 2048, K, 31), (3001, 2050, 100, 32),
+                          (1 << 13, 32768, K, 33), (1 << 16, 256, 1000, 34)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cent, x, valid = clustered_dense(torch, n, d, k, dtype, seed)
+            check_dense(torch, kk, f"n={n} d={d} k={k} {dtype}", cent, x,
+                        valid)
+            del cent, x, valid
+    # rows of d+1 elements, x an (n, d) view: 16-byte loads do not line up
+    for n, d in ((1 << 17, 2048), (3001, 2050)):
+        for dtype in (torch.float32, torch.bfloat16):
+            cent, x, valid = clustered_dense(torch, n, d + 1, K, dtype, 35)
+            check_dense(torch, kk, f"strided view n={n} d={d} (rows of "
+                        f"{d + 1}) k=64 {dtype}", cent[:, :d], x[:, :d],
+                        valid)
+            del cent, x, valid
+    # centroid 67 copies centroid 3: every tied row lands on 3, the first
+    # index, across the boundary of the 64-centroid chunks
+    for dtype in (torch.float32, torch.bfloat16):
+        cent, x, valid = clustered_dense(torch, 1 << 16, 256, 100, dtype, 36,
+                                         tie=(3, 67))
+        got, _ = check_dense(torch, kk, f"tie 3 = 67 n=2^16 d=256 k=100 "
+                             f"{dtype}", cent, x, valid)
+        if float(got[67, -1]) != 0.0 or float(got[3, -1]) <= 0.0:
+            raise AssertionError(f"tie {dtype}: counts {float(got[3, -1])} "
+                                 f"on 3 and {float(got[67, -1])} on 67")
+        log(f"    tie {dtype}: {float(got[3, -1]):.0f} rows on centroid 3, "
+            "none on 67")
+
+
+def dense_split_ms(torch, kk, cent, x, valid):
+    """B1's three stages timed apart on the same inputs: classify, fold
+    (on the classify stage's assignments), reduce."""
+    cn = kk._normalized(cent, x.dtype)
+    _out, ws = kk._dense_launch(cn, x, valid)
+    return {name: time_ms(torch, lambda: kk._dense_launch(cn, x, valid,
+                                                          stages, ws))
+            for name, stages in (("classify", 1), ("fold", 2),
+                                 ("reduce", 4))}
+
+
+def sass_hmma(path):
+    """HMMA instructions in the SASS of the library at ``path``, or why
+    they could not be counted."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None, "cuobjdump not found"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        return None, f"cuobjdump failed: {out.stderr.strip()[:200]}"
+    return sum("HMMA" in line for line in out.stdout.splitlines()), "cuobjdump"
 
 
 def check_ell(torch, kk, name, cent, idx, val, valid, d, cdt):
@@ -873,6 +993,53 @@ def ici_sweep(torch):
     return rows
 
 
+def dense_wide_run(torch, rabit_tpu_torch, km, kk, label, n, tier, cdt):
+    """Phase 5's runs at d=2048, past the width C1 capped: ``kmeans.run``
+    chained 3 at a time for 3 iterations on ``n`` clustered rows, which
+    must stage as ``tier``, launch B1 once an iteration at least, and
+    end within CENT_ATOL of the plain device loop."""
+    d, n_it = 2048, 3
+    t0 = time.perf_counter()
+    data = sparse_clusters(n, d, 32, K, seed=12)
+    rabit_tpu_torch.init(rabit_engine="empty")
+    for key in kk.LAUNCHES:
+        kk.LAUNCHES[key] = 0
+    t1 = time.perf_counter()
+    model = km.run(data, K, n_it, device_chain=3, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    launches = dict(kk.LAUNCHES)
+    wall = time.perf_counter() - t1
+    init = km.init_centroids(data, K, d, seed=0)
+    rabit_tpu_torch.finalize()
+    if launches["kmeans_stats_dense"] < n_it:
+        raise AssertionError(f"{label}: B1 launched "
+                             f"{launches['kmeans_stats_dense']} times for "
+                             f"{n_it} iterations")
+    idx, val, _lab, valid = data.to_ell(pad_index=d, row_block=1024)
+    shard = km.prepare_shard(idx, val, valid, d, 1024, compute_dtype=cdt)
+    if shard[0] != tier:
+        raise AssertionError(f"{label}: expected the {tier} tier, got "
+                             f"{shard[0]}")
+    if tier == "dense":
+        flat = shard[2].view(-1, d + 1)
+        x, v = flat[:, :d], flat[:, d]
+    else:
+        x, v = shard[2]
+    ref = km.device_iterations(torch.from_numpy(init.centroids).cuda(), x,
+                               v, n_it, use_kernel=False,
+                               compute_dtype=cdt).cpu().numpy()
+    err = float(np.abs(model.centroids - ref).max())
+    if not (np.isfinite(model.centroids).all()
+            and model.centroids.shape == (K, d) and err <= CENT_ATOL):
+        raise AssertionError(f"{label}: centroids off the plain loop by "
+                             f"{err} (bar {CENT_ATOL})")
+    log(f"    {label}: n={n} d={d} {cdt}, tier {tier}, {n_it} chained "
+        f"iterations in {wall:.2f} s, launches {launches}; centroids within "
+        f"{err:.3g} of the plain loop ({time.perf_counter() - t0:.1f} s "
+        "with data and check)")
+    return launches["kmeans_stats_dense"]
+
+
 def variant_study(torch, kk):
     """Phase 15: the kernel_experiments tool, then each classify stage's
     kernel timed alone; returns the JSON entries."""
@@ -962,29 +1129,7 @@ def main() -> int:
 
     # 3. dense kernel against its plain version
     t0 = time.perf_counter()
-    log("[3] dense stats kernel vs plain")
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        cent, x, valid = clustered_dense(torch, 1 << 19, 256, K, dtype, 3)
-        errs[f"bench {dtype}"] = check_dense(
-            torch, kk, f"n=2^19 d=256 k=64 {dtype}", cent, x, valid)
-    g = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(300, 100, generator=g, device="cuda")
-    cent = torch.randn(10, 100, generator=g, device="cuda")
-    valid = (torch.rand(300, generator=g, device="cuda") > 0.1).float()
-    for dtype in (torch.float32, torch.bfloat16):
-        check_dense(torch, kk, f"ragged n=300 d=100 k=10 {dtype}", cent,
-                    x.to(dtype), valid)
-    cent = torch.randn(3, 100, generator=g, device="cuda").abs()
-    x = -torch.randn(64, 100, generator=g, device="cuda").abs()
-    got_neg = kk.kmeans_stats_fused(cent, x, torch.ones(64, device="cuda"))
-    check_dense(torch, kk, "all-negative n=64 d=100 k=3", cent, x,
-                torch.ones(64, device="cuda"))
-    assert float(got_neg[:, -1].sum()) == 64.0
-    for dtype in (torch.float32, torch.bfloat16):
-        cent, x, valid = clustered_dense(torch, 1 << 18, 512, K, dtype, 5)
-        check_dense(torch, kk, f"n=2^18 d=512 k=64 {dtype}", cent, x, valid)
-    del cent, x, valid
+    dense_kernel_checks(torch, kk)
     log(f"    phase 3 took {time.perf_counter() - t0:.1f} s")
 
     # 4. ELL kernel against its plain version
@@ -1069,6 +1214,14 @@ def main() -> int:
                             launches=runs["chained"][2]["kmeans_stats_dense"],
                             iters=runs["chained"][1])
     del data, idx, val, valid, shard
+    # the widths C1 made raise: dense16 over the dense budget, and the
+    # chained float32 dense tier (x a view into rows of d+1)
+    results["dense"]["wide_launches"] = {
+        "dense16": dense_wide_run(torch, rabit_tpu_torch, km, kk,
+                                  "dense16 d=2048", 1 << 19, "dense16",
+                                  "bfloat16"),
+        "dense": dense_wide_run(torch, rabit_tpu_torch, km, kk,
+                                "dense d=2048", 1 << 17, "dense", "float32")}
     log(f"    phase 5 took {time.perf_counter() - t0:.1f} s")
 
     # 6. main path, ell_fused tier
@@ -1198,18 +1351,44 @@ def main() -> int:
     plain_ms = time_ms(torch, lambda: kk._stats_plain(cn, x, v), 1, 3)
     nbytes = n * d * 2 + n * 4 + K * d * 2 + K * (d + 1) * 4
     ops = 2 * n * K * d + n * d
+    split = dense_split_ms(torch, kk, cent, x, v)
+    log(f"    kmeans_stats_dense at ({n}, {d}) bf16 k={K}: {ms:.3f} ms = "
+        f"classify {split['classify']:.3f} + fold {split['fold']:.3f} + "
+        f"reduce {split['reduce']:.3f} ms apart (one read of x: "
+        f"{n * d * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    wide = {}
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        cw, xw, vw = clustered_dense(torch, 1 << 19, 2048, K, dtype, 37)
+        wide_ms = time_ms(torch, lambda: kk.kmeans_stats_fused(cw, xw, vw))
+        wsplit = dense_split_ms(torch, kk, cw, xw, vw)
+        read = xw.numel() * xw.element_size() / HBM_BYTES_PER_S * 1e3
+        wide[name] = dict(ms=wide_ms, read_x_ms=read, **{
+            f"{stage}_ms": t for stage, t in wsplit.items()})
+        log(f"    kmeans_stats_dense at (524288, 2048) {name} k={K}: "
+            f"{wide_ms:.3f} ms = classify {wsplit['classify']:.3f} + fold "
+            f"{wsplit['fold']:.3f} + reduce {wsplit['reduce']:.3f} ms apart "
+            f"(one read of x: {read:.3f} ms)")
+        del cw, xw, vw
+    hmma, how = sass_hmma(_build.library_path("kmeans_stats_dense"))
+    log(f"    kmeans_stats_dense SASS: " + (
+        f"{hmma} HMMA instructions ({how} -sass on the built library)"
+        if hmma is not None else f"not inspected: {how}"))
     lines.append(dict(
         name="kmeans_stats_dense", route="cuda",
-        source="rabit_tpu_torch/ops/csrc/kmeans_stats.cu",
+        source="rabit_tpu_torch/ops/csrc/kmeans_stats_dense.cu",
         replaces="rabit_tpu/ops/kmeans_kernel.py:44",
-        launches=r["launches"], iterations=r["iters"], max_abs_err=err,
+        launches=r["launches"], iterations=r["iters"],
+        wide_run_launches=r["wide_launches"], max_abs_err=err,
         ms=ms, kernel_ms=ms, plain_ms=plain_ms,
         bound_ms=max(nbytes / HBM_BYTES_PER_S,
                      ops / PEAK_OPS["bfloat16"]) * 1e3,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                   >= ops / PEAK_OPS["bfloat16"] else "operations"),
         library_ms=None, library="none: no single PyTorch call",
-        shape=f"x ({n}, {d}) bfloat16, k={K}"))
+        shape=f"x ({n}, {d}) bfloat16, k={K}",
+        **{f"{stage}_ms": t for stage, t in split.items()},
+        d2048=wide, sass_hmma=hmma if hmma is not None else how))
     r = results["ell"]
     idx_g, val_g, dvalid, d_pad, nnz = r["payload"]
     cent = torch.nn.functional.pad(r["cent"], (0, d_pad - r["cent"].shape[1]))

@@ -12,25 +12,29 @@ counts accumulate in float32, weighted by the row's validity.
   ``rabit_tpu/ops/kmeans_kernel.py:_stats_kernel``;
 * :func:`kmeans_ell_stats_fused` (padded-ELL rows) replaces
   ``rabit_tpu/ops/kmeans_kernel.py:_ell_stats_kernel``;
-* :func:`kmeans_stats_variant` runs the dense kernel with another
-  classify stage, one of :data:`VARIANTS`: the B1 variant study of
-  ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at :138 and
-  :157), whose modes replace B1's argmax stage and keep every other line.
+* :func:`kmeans_stats_variant` runs the previous one-pass dense kernel
+  with another classify stage, one of :data:`VARIANTS`: the B1 variant
+  study of ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at
+  :138 and :157), whose modes replace that kernel's argmax stage and
+  keep every other line.
 
-On a CUDA tensor each launches its kernel (the dense ones from
-``csrc/kmeans_stats.cu``, the ELL one from ``csrc/kmeans_ell_stats.cu``,
-built at first use) or raises; on a CPU tensor it runs the plain version
-(``_stats_plain``, ``_ell_stats_plain``), which is also what the card's
-kernels are checked against.  ``_ell_stats_sparse_plain`` mirrors the ELL
-kernel's sparse arithmetic (merge, gather-similarity, argmax,
+On a CUDA tensor each launches its kernel (the dense one from
+``csrc/kmeans_stats_dense.cu``, the variants from ``csrc/kmeans_stats.cu``,
+the ELL one from ``csrc/kmeans_ell_stats.cu``, built at first use) or
+raises; on a CPU tensor it runs the plain version (``_stats_plain``,
+``_ell_stats_plain``), which is also what the card's kernels are checked
+against.  :func:`_dense_plan` sizes the dense kernel's launches in
+Python, so the CPU tests reach its limits.  ``_ell_stats_sparse_plain``
+mirrors the ELL kernel's sparse arithmetic (merge, gather-similarity, argmax,
 ``index_add_``) for the CPU tests; nothing on the CUDA route calls it.
 ``LAUNCHES`` counts kernel launches.
 
 What bounds the kernels on an H100, and what the design does about it,
-is set out at the top of each CUDA source: the dense similarity runs as
-float32 FMAs on the CUDA cores, so the dense kernels are bound by
-operations (and shared memory bandwidth), while each input byte is read
-from device memory once; the ELL kernel works on each row's nonzeros
+is set out at the top of each CUDA source: the dense kernel classifies
+(bf16 similarity on the tensor cores, float32 on the CUDA cores) and
+then folds in a second pass, so it is bound by two reads of x; the
+variants' kernel runs the similarity as float32 FMAs on the CUDA cores
+and is bound by operations; the ELL kernel works on each row's nonzeros
 alone and is bound by the single read of its slots.  The TPU's layout
 padding (128-lane features, 16384-row tiles) is not needed: the kernels
 mask their own ragged edges.
@@ -38,6 +42,7 @@ mask their own ragged edges.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -58,9 +63,27 @@ _TILE_ROWS = 32                   # rows per tile in the CUDA kernels
 _SM_SMEM_BYTES = 233472           # shared memory of one H100 SM
 _SMEM_PER_BLOCK_RESERVED = 1024
 _MAX_BLOCKS_PER_SM = 8            # 2048 threads / 256 per block
+_MAX_SM_THREADS = 2048
+_MAX_RESIDENT_BLOCKS = 32         # blocks resident on one SM
 _ELL_WARPS = 32                   # warps in the ELL kernel's block
 _ELL_ROWS_PER_WARP = (4, 2, 1)    # rows a warp takes per row group
 _ELL_CLUSTER_CHUNK = 64           # its centroid columns pad to this
+# the dense kernel (csrc/kmeans_stats_dense.cu), whose constants these
+# restate: classify blocks of 128 rows against chunks of 64 centroids and
+# 64 features; fold blocks of column tiles up to 256 wide, 4 columns a
+# thread (1 where k leaves tiles narrower than 4), + the counts warp, that
+# stage 256 rows' assignments at a time
+_DENSE_BLOCK_ROWS = 128
+_DENSE_CHUNK = 64
+_DENSE_FOLD_MAX_COLS = 256        # widest column tile
+_DENSE_FOLD_VEC = 4               # columns a fold thread owns, dt % 4 == 0
+_DENSE_FOLD_BATCH = 256
+_DENSE_MAX_SMEM = 232448          # 227 KB a block on sm_90
+_DENSE_PARTIAL_CAP = 256 << 20    # bytes of per-chunk partial sums
+_DENSE_FOLD_WAVES = 2             # fold blocks: this many per resident slot
+# the fold holds k*dt + k floats and 256 (assign, valid) pairs: dt=1 gives
+# the largest k
+DENSE_MAX_K = (_DENSE_MAX_SMEM - 8 * _DENSE_FOLD_BATCH) // 8
 
 
 def _normalized(centroids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -230,9 +253,6 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("kmeans_stats")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kmeans_stats_dense.argtypes = [p, ll, i, p, ll, p, i, i, i, i,
-                                           i, i, p, p, p]
-        lib.kmeans_stats_dense.restype = i
         lib.kmeans_stats_variant.argtypes = [i, p, ll, i, p, ll, p, i, i, i,
                                              i, i, i, i, p, p, p]
         lib.kmeans_stats_variant.restype = i
@@ -249,8 +269,8 @@ def _lib() -> ctypes.CDLL:
 def _plan(lib, device: torch.device, n: int, d: int, k: int, mode: int = 0):
     """(grid_x, ny, dslice): a persistent grid of a few blocks per SM,
     and the accumulator's column split when (k, d) does not fit beside
-    the row tile in shared memory.  ``mode`` is the classify stage (0 in
-    production, else a :data:`VARIANTS` index)."""
+    the row tile in shared memory, for the variants' kernel.  ``mode`` is
+    a :data:`VARIANTS` index (0, ``argmax``, is the dense pass)."""
     widest = lib.kmeans_stats_max_dslice(d, k, mode)
     if widest < 1:
         raise ValueError(f"kmeans stats kernel: d={d}, k={k} does not fit "
@@ -263,6 +283,103 @@ def _plan(lib, device: torch.device, n: int, d: int, k: int, mode: int = 0):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid_x = max(1, min(-(-n // _TILE_ROWS), sms * per_sm))
     return grid_x, ny, dslice
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _dense_classify_smem(bf16: bool) -> int:
+    """The classify block's shared memory: a ring of buffers of the x and
+    centroid stages (two, of stride 72 in bf16 or 68 in float32), aliased
+    with the (128, 68) float32 similarity tile."""
+    rows = _DENSE_BLOCK_ROWS + _DENSE_CHUNK
+    stage = rows * (_DENSE_CHUNK + 8) * 2 if bf16 else rows * (
+        _DENSE_CHUNK + 4) * 4
+    return max(2 * stage, _DENSE_BLOCK_ROWS * (_DENSE_CHUNK + 4) * 4)
+
+
+def _dense_fold_smem(k: int, dt: int) -> int:
+    """The fold block's shared memory: a (k, dt) accumulator, k counts,
+    one batch of assignments and validities."""
+    return 4 * (k * dt + k) + 8 * _DENSE_FOLD_BATCH
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """Launch plan of the dense kernel: classify blocks of ``block_rows``
+    rows; a fold grid of ``tiles`` column tiles of width ``dt`` by
+    ``chunks`` row chunks of ``chunk_rows`` rows, ``fold_threads`` threads
+    a block; each stage's shared memory a block; the assignment and
+    partial-sum workspaces in bytes (no partial buffer when one chunk
+    writes the output itself)."""
+
+    block_rows: int
+    dt: int
+    tiles: int
+    fold_threads: int
+    chunks: int
+    chunk_rows: int
+    classify_smem: int
+    fold_smem: int
+    assign_bytes: int
+    partial_bytes: int
+
+
+def _dense_plan(n: int, d: int, k: int, dtype, sms: int) -> DensePlan:
+    """Plan the dense kernel for (n, d) rows of ``dtype`` and k clusters
+    on a card of ``sms`` SMs.  Nothing stages a whole row, so any d
+    fits; the fold's (k, dt) accumulator bounds k at
+    :data:`DENSE_MAX_K` (dt=1).  dt is the widest tile that fits shared
+    memory, at most 256 columns (64 fold threads of 4 columns; a multiple
+    of 4 unless k leaves less), balanced over the tiles; the row chunks
+    fill two waves of resident fold blocks, within the partial-sum cap."""
+    if not 1 <= k <= DENSE_MAX_K:
+        raise ValueError(f"kmeans_stats_fused on CUDA takes 1 <= k <= "
+                         f"{DENSE_MAX_K} (the fold's accumulator of k "
+                         f"float32 columns and k counts in 227 KB of shared "
+                         f"memory); got k={k}, d={d}")
+    widest = (_DENSE_MAX_SMEM - 8 * _DENSE_FOLD_BATCH) // (4 * k) - 1
+    vec = _DENSE_FOLD_VEC if widest >= _DENSE_FOLD_VEC else 1
+    dt = min(_ceil(d, vec) * vec, _DENSE_FOLD_MAX_COLS, widest // vec * vec)
+    tiles = _ceil(d, dt)
+    dt = _ceil(_ceil(d, tiles), vec) * vec       # balanced, no more tiles
+    threads = _ceil(_ceil(dt, vec), 32) * 32 + 32   # + the counts warp
+    fold = _dense_fold_smem(k, dt)
+    per_sm = max(1, min(_MAX_RESIDENT_BLOCKS, _MAX_SM_THREADS // threads,
+                        _SM_SMEM_BYTES // (fold + _SMEM_PER_BLOCK_RESERVED)))
+    per_chunk = k * (d + 1) * 4
+    chunks = max(1, min(_ceil(sms * per_sm * _DENSE_FOLD_WAVES, tiles),
+                        _ceil(n, _DENSE_FOLD_BATCH),
+                        _DENSE_PARTIAL_CAP // per_chunk, 65535))
+    chunk_rows = _ceil(_ceil(max(n, 1), chunks), _DENSE_FOLD_BATCH) * \
+        _DENSE_FOLD_BATCH
+    chunks = max(1, _ceil(n, chunk_rows))
+    bf16 = as_torch_dtype(dtype) == torch.bfloat16
+    return DensePlan(_DENSE_BLOCK_ROWS, dt, tiles, threads, chunks,
+                     chunk_rows, _dense_classify_smem(bf16), fold, 4 * n,
+                     0 if chunks == 1 else chunks * per_chunk)
+
+
+_DENSE_LIB = None
+
+
+def _dense_lib() -> ctypes.CDLL:
+    global _DENSE_LIB
+    if _DENSE_LIB is None:
+        from rabit_tpu_torch.ops import _build
+
+        lib = _build.load("kmeans_stats_dense")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kmeans_stats_dense.argtypes = [p, ll, i, p, ll, p, i, i, i, i,
+                                           i, i, i, i, p, p, p, p]
+        lib.kmeans_stats_dense.restype = i
+        lib.kmeans_stats_dense_smem_bytes.argtypes = [i, i, i, i]
+        lib.kmeans_stats_dense_smem_bytes.restype = ll
+        lib.kmeans_stats_dense_error_string.argtypes = [i]
+        lib.kmeans_stats_dense_error_string.restype = ctypes.c_char_p
+        _DENSE_LIB = lib
+    return _DENSE_LIB
 
 
 _ELL_LIB = None
@@ -325,11 +442,48 @@ def _check_launch(lib, err: int, name: str) -> None:
                            f"({lib.kmeans_stats_error_string(err).decode()})")
 
 
+def _dense_launch(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                  stages: int = 7, ws=None):
+    """Launch stages of the dense kernel (bit 0 classify, bit 1 fold,
+    bit 2 reduce; 7 is the whole pass) and return ``(out, ws)``, where
+    ``ws`` holds the workspaces, to hand back for a later stage.  Counts
+    no launch: :func:`_dense_cuda` does, for whole passes."""
+    lib = _dense_lib()
+    n, d = x.shape
+    k = cn.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = _dense_plan(n, d, k, x.dtype, sms)
+    if ws is None:
+        # centroids transposed, (d, kp), columns past k zero
+        ct = torch.zeros((d, _ceil(k, _DENSE_CHUNK) * _DENSE_CHUNK),
+                         dtype=x.dtype, device=x.device)
+        ct[:, :k] = cn.T
+        out = torch.empty((k, d + 1), dtype=torch.float32, device=x.device)
+        ws = dict(ct=ct, out=out,
+                  assign=torch.empty(n, dtype=torch.int32, device=x.device),
+                  partial=(out if plan.chunks == 1 else torch.empty(
+                      (plan.chunks, k, d + 1), dtype=torch.float32,
+                      device=x.device)))
+    ct = ws["ct"]
+    with torch.cuda.device(x.device):
+        err = lib.kmeans_stats_dense(
+            x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
+            valid.data_ptr(), valid.stride(0), ct.data_ptr(), ct.shape[1],
+            n, d, k, plan.dt, plan.chunks, plan.chunk_rows, stages,
+            ws["assign"].data_ptr(), ws["partial"].data_ptr(),
+            ws["out"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"kmeans_stats_dense launch failed: CUDA error {err} "
+            f"({lib.kmeans_stats_dense_error_string(err).decode()})")
+    return ws["out"], ws
+
+
 def _dense_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                 mode: str | None = None, block: int = 1) -> torch.Tensor:
-    """The dense kernel: the production stage (``kmeans_stats_dense``)
-    when ``mode`` is None, else classify stage ``mode`` of the variant
-    study (``kmeans_stats_variant``)."""
+    """The dense kernel (``kmeans_stats_dense``, its own source) when
+    ``mode`` is None, else classify stage ``mode`` of the variant study
+    (``kmeans_stats_variant``, on ``kmeans_stats.cu``)."""
     name = "kmeans_stats_fused" if mode is None else "kmeans_stats_variant"
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} on CUDA takes float32 or bfloat16 rows, "
@@ -339,26 +493,29 @@ def _dense_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     valid = valid.to(device=x.device, dtype=torch.float32)
     n, d = x.shape
     k = cn.shape[0]
+    if mode is None:
+        if n == 0:
+            return torch.zeros((k, d + 1), dtype=torch.float32,
+                               device=x.device)
+        out, _ws = _dense_launch(cn, x, valid)
+        LAUNCHES["kmeans_stats_dense"] += 1
+        return out
     out = torch.empty((k, d + 1), dtype=torch.float32, device=x.device)
     if n == 0:
         return out.zero_()
     lib = _lib()
-    code = 0 if mode is None else VARIANTS.index(mode)
+    code = VARIANTS.index(mode)
     grid_x, ny, dslice = _plan(lib, x.device, n, d, k, code)
     partial = torch.empty((grid_x, k, d + 1), dtype=torch.float32,
                           device=x.device)
-    rows = (x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
-            valid.data_ptr(), valid.stride(0), cn.contiguous().data_ptr(),
-            n, d, k)
     with torch.cuda.device(x.device):
-        tail = (grid_x, ny, dslice, partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        if mode is None:
-            err = lib.kmeans_stats_dense(*rows, *tail)
-        else:
-            err = lib.kmeans_stats_variant(code, *rows, block, *tail)
-    _check_launch(lib, err, name if mode is None else f"{name} {mode}")
-    LAUNCHES["kmeans_stats_dense" if mode is None else f"p1_{mode}"] += 1
+        err = lib.kmeans_stats_variant(
+            code, x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
+            valid.data_ptr(), valid.stride(0), cn.contiguous().data_ptr(), n,
+            d, k, block, grid_x, ny, dslice, partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _check_launch(lib, err, f"{name} {mode}")
+    LAUNCHES[f"p1_{mode}"] += 1
     return out
 
 

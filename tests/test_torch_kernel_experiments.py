@@ -182,6 +182,14 @@ def test_cuda_route_raises_without_the_toolkit(monkeypatch, tmp_path):
     assert tk.LAUNCHES == before
 
 
-def test_stats_ab_prints_its_usage_without_a_source(capsys):
-    assert stats_ab.main([]) == 2
-    assert "stats_ab OTHER.cu" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,says", [
+    ([], "kmeans_stats.cu"),
+    (["a.cu", "b.cu"], "stats_ab [OTHER.cu]"),
+])
+def test_stats_ab_default_source_and_usage(monkeypatch, capsys, argv, says):
+    """Without a source ``stats_ab`` holds B1 against the in-tree
+    ``kmeans_stats.cu`` (on the card only: here it says so and stops);
+    with two it prints its usage."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert stats_ab.main(argv) == 2
+    assert says in capsys.readouterr().err

@@ -44,7 +44,8 @@ def _dense_pair(cent, x, valid, dtype, block):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,d,k", [(512, 256, 64), (300, 100, 10)])
+@pytest.mark.parametrize("n,d,k", [(512, 256, 64), (300, 100, 10),
+                                   (256, 2048, 64), (130, 2050, 100)])
 def test_dense_stats_match_jax(n, d, k, dtype):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -67,6 +68,27 @@ def test_dense_stats_all_negative_similarity(dtype):
     got, want = _dense_pair(cent, x, valid, dtype, block=64)
     _assert_stats(got, want, dtype)
     assert got[:, -1].sum() == n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_stats_tie_across_centroid_chunks(dtype):
+    """Centroid 67 copies centroid 3 (k=100: the CUDA kernel scores them
+    in different 64-centroid chunks): every row of that pair goes to 3,
+    the first index of the maximum, in both packages."""
+    rng = np.random.default_rng(6)
+    n, d, k = 400, 256, 100
+    basis = rng.standard_normal((k, d)).astype(np.float32)
+    label = rng.integers(0, k, n)
+    label[label == 67] = 3
+    label[:8] = 3
+    x = (basis[label] + 0.02 * rng.standard_normal((n, d))).astype(
+        np.float32)
+    cent = basis.copy()
+    cent[67] = cent[3]
+    valid = np.ones(n, np.float32)
+    got, want = _dense_pair(cent, x, valid, dtype, block=256)
+    _assert_stats(got, want, dtype)
+    assert got[67, -1] == 0 and got[3, -1] == (label == 3).sum()
 
 
 def _ell_inputs(n, d, k, nnz, seed):
