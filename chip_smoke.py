@@ -33,9 +33,19 @@ Phases, each raising on failure (the script then exits non-zero):
     bfloat16, the compute dtype the ell_fused tier runs, and in float32),
     B1 also with its classify, fold and reduce stages apart and at
     2^19 x 2048, and count the HMMA instructions in B1's SASS;
- 9. hold the GBDT histogram kernel against its plain version on the card
-    (2,097,152 rows x 64 features x 257 slots at 2, 16 and 64 channels in
-    bfloat16 and float32; a ragged shape; bins out of range);
+ 9. hold the GBDT histogram kernel (B3) against its plain version on the
+    card, in bfloat16 and float32, each launched twice for the same bits
+    and each with its plan's shared memory against the kernel source's
+    (``gbdt_hist_smem_bytes``): 2,097,152 rows x 64 features x 257 slots
+    at 1, 2, 3, 16, 33 and 64 channels (ragged channel groups at 1, 3,
+    33), 64 channels over 1 and 3 features (ragged feature rectangles),
+    bins out of range; 5 and 100,003 rows (under one tile; rows no
+    multiple of the 16-byte copies); 2 slots (2^14 rows), 1024, 2048 and
+    4096 slots (2^19 rows x 16 features x 64 channels, where the warps
+    narrow to 16 and 8 columns), 58,045 slots (the top of the range); a
+    ragged shape; and 2 slots at 2^19 rows, kernel and plain against a
+    float64 ``index_add_``: equal to it on weights k/16, whose float32
+    sums are exact, and their drift from it on normal weights printed;
 10. the GBDT main path: ``boosting.train`` on 2,097,152 rows x 64
     features, 256 bins and a missing slot, depth 6, 4 rounds -- the
     float32 kernel against the plain path, then the default bfloat16
@@ -43,7 +53,13 @@ Phases, each raising on failure (the script then exits non-zero):
     channel count (nw = 2 x the level's nodes);
 11. time the histogram kernel, its plain version and ``index_add_`` at
     every level's channel count (``index_add_`` at the widest over row
-    chunks whose expanded source fits the card, summed), sum launches x
+    chunks whose expanded source fits the card, summed), each beside its
+    bound and its shared-memory floor (8 B of shared traffic an add at
+    128 B a clock an SM and the card's top SM clock, or the bytes where
+    larger, printed on the line before); print the plan at 2 and 64
+    channels; at 32 and 64 channels, where the plan takes the
+    one-feature-warp add path, time the same plan on the general path
+    (the same bits asked), the A/B that keeps the first; sum launches x
     (time - bound) over the levels, and split ``train()``'s time;
 12. hold the ring allreduce kernel (B4) against its plain version, bit
     for bit: SUM/MAX/MIN/PROD over 2, 3, 4 and 8 logical ranks on the
@@ -75,6 +91,7 @@ summation order alone separates kernel and plain sums.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -93,6 +110,7 @@ DP_RANKS = 4                      # logical ranks of the data-parallel steps
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FMA
 F32_ADDS_PER_S = PEAK_OPS["float32"] / 2            # an FMA counts as two
+SMEM_BYTES_PER_CLOCK = 128        # an SM's shared memory, 32 banks x 4 B
 GBDT_ROWS, GBDT_FEATURES, GBDT_NBIN = 1 << 21, 64, 256
 GBDT_DEPTH, GBDT_ROUNDS = 6, 4
 # float32 sums against the plain version: the JAX tests' own bar
@@ -435,9 +453,36 @@ def round_losses(model, bins, y):
     return losses, float(((m > 0) == (y > 0.5)).mean()), p
 
 
+def hist_plan(torch, hk, bins_t, w, nbin, cdt):
+    """B3's plan for these inputs, checked against the shared memory the
+    kernel's source states for it."""
+    f, n = bins_t.shape
+    nw = w.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = hk._hist_plan(n, f, nw, nbin, cdt, sms)
+    got = hk._lib().gbdt_hist_smem_bytes(
+        int(cdt == torch.bfloat16), nbin, plan.warps, plan.cols,
+        plan.features, plan.channels, plan.tile_rows)
+    if got != plan.smem:
+        raise AssertionError(f"B3 plan for f={f} n={n} nw={nw} nbin={nbin} "
+                             f"{cdt}: {plan.smem} B of shared memory, the "
+                             f"kernel's source says {got} B")
+    return plan
+
+
+def plan_text(plan):
+    path = "one-feature warps" if plan.uniform else "general"
+    return (f"{plan.warps} warps x {plan.cols} columns, F x C = "
+            f"{plan.features} x {plan.channels}, T={plan.tile_rows} "
+            f"rows, {path} add path, {plan.chunks} "
+            f"chunks of {plan.chunk_rows} rows, {plan.smem} B shared")
+
+
 def check_hist(torch, hk, name, bins_t, w, nbin, cdt):
-    """Kernel against plain on the same inputs: the same bits on two
-    launches, sums within the float32 bar; returns max |err|."""
+    """Kernel against plain on the same inputs: the plan's shared memory
+    against the source's, the same bits on two launches, sums within the
+    float32 bar; returns max |err|."""
+    plan = hist_plan(torch, hk, bins_t, w, nbin, cdt)
     got = hk.hist_fused_multi(bins_t, w, nbin, compute_dtype=cdt)
     again = hk.hist_fused_multi(bins_t, w, nbin, compute_dtype=cdt)
     torch.cuda.synchronize()
@@ -450,8 +495,74 @@ def check_hist(torch, hk, name, bins_t, w, nbin, cdt):
                                msg=lambda m: f"{name}: {m}")
     err = float((got - want).abs().max())
     log(f"  {name}: ok (same bits twice, within rtol {SUM_RTOL} atol "
-        f"{SUM_ATOL}), max |kernel - plain| = {err:.3g}")
+        f"{SUM_ATOL}), max |kernel - plain| = {err:.3g}; {plan_text(plan)}")
     return err
+
+
+def hist_inputs(torch, g, n, f, nw, nbin, bad=0.0):
+    """(f, n) int32 bins in [0, nbin), a share ``bad`` of them -1, nbin or
+    nbin + 1000 (adding nothing), and (nw, n) weights."""
+    bins_t = torch.randint(0, nbin, (f, n), generator=g, device="cuda",
+                           dtype=torch.int32)
+    if bad:
+        odd = torch.tensor([-1, nbin, nbin + 1000], device="cuda",
+                           dtype=torch.int32)
+        hit = torch.rand(f, n, generator=g, device="cuda") < bad
+        bins_t[hit] = odd[torch.randint(0, 3, (int(hit.sum()),),
+                                        generator=g, device="cuda")]
+    return bins_t, torch.randn(nw, n, generator=g, device="cuda")
+
+
+def hist_f64(torch, bins_t, w, nbin):
+    """B3's function summed in float64 with ``index_add_``, a feature at a
+    time."""
+    f, n = bins_t.shape
+    out = torch.zeros(w.shape[0], f, nbin + 1, dtype=torch.float64,
+                      device=w.device)
+    wd = w.double()
+    for j in range(f):
+        b = bins_t[j].long()
+        out[:, j].index_add_(1, torch.where((b >= 0) & (b < nbin), b, nbin),
+                             wd)
+    return out[:, :, :-1]
+
+
+def check_hist_f64(torch, hk, g):
+    """2 slots at 2^19 rows x 16 features x 64 channels (about 2^18 rows a
+    slot), kernel and plain against a float64 sum.  Weights that are
+    multiples of 1/16 in [-1, 1] keep every partial sum exact in float32
+    (|sum| <= 2^19 on a grid of 2^-4: 23 bits), so both must equal it
+    bit for bit, in any order.  Normal weights show how far each float32
+    sum drifts from it: the rounding error grows with the partial sums
+    while a slot's sum can cancel to near 0, so at this size the plain
+    version's drift alone (its ``index_add_`` adds in no fixed order) can
+    put kernel against plain off the rtol 1e-4 / atol 1e-3 bar of
+    ``check_hist``."""
+    n, f, nw, nbin = 1 << 19, 16, 64, 2
+    b, w = hist_inputs(torch, g, n, f, nw, nbin, bad=0.01)
+    exact = torch.randint(-16, 17, (nw, n), generator=g,
+                          device="cuda").float() / 16
+    for cdt in (torch.bfloat16, torch.float32):
+        name = f"n=2^19 f={f} nbin={nbin} nw={nw} {cdt}"
+        hist_plan(torch, hk, b, exact, nbin, cdt)
+        want = hist_f64(torch, b, exact, nbin)
+        for who, got in (("kernel", hk.hist_fused_multi(b, exact, nbin,
+                                                        compute_dtype=cdt)),
+                         ("plain", hk._hist_plain(b, exact, nbin, cdt))):
+            if not torch.equal(got.double(), want):
+                raise AssertionError(
+                    f"{name}, weights k/16: {who} is off the exact sum by "
+                    f"{float((got.double() - want).abs().max()):.3g}")
+        ref = hist_f64(torch, b, w.to(cdt), nbin)
+        drift = {who: float((got.double() - ref).abs().max()) for who, got in
+                 (("kernel", hk.hist_fused_multi(b, w, nbin,
+                                                 compute_dtype=cdt)),
+                  ("plain", hk._hist_plain(b, w, nbin, cdt)))}
+        log(f"  {name}: ok (weights k/16: kernel and plain equal the exact "
+            f"sum); normal weights, max |sum - float64 sum|: kernel "
+            f"{drift['kernel']:.3g}, plain {drift['plain']:.3g}, the sums "
+            f"up to {float(ref.abs().max()):.4g}, the smallest "
+            f"{float(ref.abs().min()):.3g}")
 
 
 def gbdt_kernel_checks(torch, hk):
@@ -462,12 +573,20 @@ def gbdt_kernel_checks(torch, hk):
     bins_t = torch.randint(0, nbin, (f, n), generator=g, device="cuda",
                            dtype=torch.int32)
     errs = {}
-    for nw in (2, 16, 64):
+    # the level widths, and ragged channel groups (1, 3, 33)
+    for nw in (1, 2, 3, 16, 33, 64):
         w = torch.randn(nw, n, generator=g, device="cuda")
         for cdt in (torch.bfloat16, torch.float32):
             errs[nw, cdt] = check_hist(
                 torch, hk, f"n=2^21 f=64 nbin=257 nw={nw} {cdt}", bins_t, w,
                 nbin, cdt)
+    # ragged feature rectangles: 1 and 3 features of 64 channels
+    w = torch.randn(64, n, generator=g, device="cuda")
+    for nf in (1, 3):
+        for cdt in (torch.bfloat16, torch.float32):
+            check_hist(torch, hk, f"n=2^21 f={nf} nbin=257 nw=64 {cdt}",
+                       bins_t[:nf], w, nbin, cdt)
+    del w
     # bins -1, nbin and 1000 add nothing: at the main shape and ragged
     odd = torch.tensor([-1, nbin, 1000], device="cuda", dtype=torch.int32)
     bad = bins_t.clone()
@@ -478,6 +597,29 @@ def gbdt_kernel_checks(torch, hk):
                bad, torch.randn(16, n, generator=g, device="cuda"), nbin,
                torch.float32)
     del bad, hit
+    # rows under one tile, and rows that are no multiple of the 16-byte
+    # copies (every staged row goes element by element)
+    for rows, nw in ((5, 64), (100003, 64), (100003, 3)):
+        b, w = hist_inputs(torch, g, rows, f, nw, nbin, bad=0.01)
+        for cdt in (torch.bfloat16, torch.float32):
+            check_hist(torch, hk, f"n={rows} f=64 nbin=257 nw={nw} {cdt}",
+                       b, w, nbin, cdt)
+    # other widths: 2 slots (2^14 rows: about 8,000 a slot, as at the
+    # main shape; 2^19 rows in check_hist_f64), and 1024-4096, where the
+    # warps narrow
+    for width, rows in ((2, 1 << 14), (1024, 1 << 19), (2048, 1 << 19),
+                        (4096, 1 << 19)):
+        b, w = hist_inputs(torch, g, rows, 16, 64, width, bad=0.01)
+        for cdt in (torch.bfloat16, torch.float32):
+            check_hist(torch, hk, f"n={rows} f=16 nbin={width} nw=64 {cdt}",
+                       b, w, width, cdt)
+    check_hist_f64(torch, hk, g)
+    # the top of the range: one-column warps, 8-row tiles
+    b, w = hist_inputs(torch, g, 3001, 3, 64, 58045, bad=0.01)
+    for cdt in (torch.bfloat16, torch.float32):
+        check_hist(torch, hk, f"n=3001 f=3 nbin=58045 nw=64 {cdt}", b, w,
+                   58045, cdt)
+    del b, w
     n, f, nbin = 100003, 5, 7
     small = torch.randint(0, nbin, (f, n), generator=g, device="cuda",
                           dtype=torch.int32)
@@ -633,10 +775,39 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
     f, n = bins_t.shape
     nbin = GBDT_NBIN + 1
     g = torch.Generator(device="cuda").manual_seed(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    adds_per_s = SMEM_BYTES_PER_CLOCK / 8 * sms * clock_mhz * 1e6
+    log(f"    shared-memory floor: 8 B of shared traffic an add (a 4-byte "
+        f"load and store) at {SMEM_BYTES_PER_CLOCK} B a clock on each of "
+        f"{sms} SMs at the top SM clock of {clock_mhz:.0f} MHz: "
+        f"{adds_per_s:.3g} adds/s")
     by_nw = {}
     for nw in sorted({2, 16, 64} | set(gbdt["by_nw"])):
         w = torch.randn(nw, n, generator=g, device="cuda").to(torch.bfloat16)
+        if nw in (2, 64):
+            log(f"    plan at nw={nw}: "
+                f"{plan_text(hist_plan(torch, hk, bins_t, w, nbin, w.dtype))}")
         ms = time_ms(torch, lambda: hk.hist_fused_multi(bins_t, w, nbin))
+        plan = hk._hist_plan(n, f, nw, nbin, torch.bfloat16, sms)
+        if plan.uniform:
+            # the A/B that keeps the one-feature-warp add path: the same
+            # plan on the general path, which must give the same bits
+            general = dataclasses.replace(plan, uniform=False)
+            run = lambda: hk._hist_cuda(bins_t, w, nbin,  # noqa: E731
+                                        torch.bfloat16, general)
+            if not torch.equal(run(), hk.hist_fused_multi(bins_t, w, nbin)):
+                raise AssertionError(f"B3 nw={nw}: the general add path "
+                                     "gave other bits")
+            general_ms = time_ms(torch, run)
+            again_ms = time_ms(torch, lambda: hk.hist_fused_multi(bins_t, w,
+                                                                  nbin))
+            log(f"    nw={nw}: one-feature-warp add path {ms:.3f} / "
+                f"{again_ms:.3f} ms (before / after), the general path "
+                f"{general_ms:.3f} ms on the same plan, the same bits")
         plain_ms = time_ms(
             torch, lambda: hk._hist_plain(bins_t, w, nbin, torch.bfloat16),
             1, 3)
@@ -650,6 +821,9 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
                          else "operations",
                          launches=gbdt["by_nw"].get(nw, 0),
                          max_abs_err=errs.get((nw, torch.bfloat16)))
+        log(f"    nw={nw}: shared-memory floor "
+            f"{max(by_bytes, adds / adds_per_s) * 1e3:.3f} ms (the bytes "
+            "where larger)")
         log(f"    nw={nw}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"index_add_ {'-' if library_ms is None else f'{library_ms:.3f}'}"
             f" ms, bound {by_nw[nw]['bound_ms']:.3f} ms by "

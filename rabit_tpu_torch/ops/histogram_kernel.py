@@ -15,16 +15,18 @@ nothing.  It replaces the Pallas kernel
 On a CUDA tensor it launches the kernel of ``csrc/histogram.cu`` (built
 at first use) or raises; on a CPU tensor it runs the plain version
 (:func:`_hist_plain`, ``index_add_``), which is also what the card's
-kernel is checked against.  ``LAUNCHES`` counts kernel launches.  The
-TPU kernel's two-level one-hot plan (``plan``, ``plan_override``,
-``default_block``) fed its matrix unit and has no counterpart here; what
-bounds the CUDA kernel, and what its design does about it, is set out at
-the top of its source.
+kernel is checked against.  ``LAUNCHES`` counts kernel launches.
+:func:`_hist_plan` sizes the kernel's launches in Python, so the CPU
+tests reach its limits.  The TPU kernel's two-level one-hot plan
+(``plan``, ``plan_override``, ``default_block``) fed its matrix unit and
+has no counterpart here; what bounds the CUDA kernel, and what its design
+does about it, is set out at the top of its source.
 """
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -33,39 +35,134 @@ from rabit_tpu_torch.ops.reduce_ops import as_torch_dtype
 LAUNCHES = {"gbdt_hist": 0}
 
 _MAX_CHANNELS = 64
-# The CUDA kernel's shared-memory layout (csrc/histogram.cu: kThreads,
-# kTileRows, hist_stride, smem_words), mirrored for planning on the host.
-_THREADS = 256
-_TILE_ROWS = 32
+# The CUDA kernel's limits and shared-memory layout (csrc/histogram.cu:
+# kMaxWarps, kRowPad, kMinTileRows, smem_bytes), restated for planning on
+# the host.
+_MAX_WARPS = 8                    # a block
+_ROW_PAD = 16                     # bytes after each staged row
+_TILE_ROWS = (128, 64, 32)        # rows a staged tile, widest first
+_NARROW_TILE_ROWS = (16, 8)       # only where no wider tile fits
+_STAGES = 2                       # tiles in the cp.async ring (kStages)
 _BLOCK_SMEM_BYTES = 232448        # 227 KB a block can use on an H100
 _SM_SMEM_BYTES = 233472           # shared memory of one H100 SM
 _SMEM_PER_BLOCK_RESERVED = 1024
-_HIST_BYTES_PER_BLOCK = 72 << 10  # about three blocks per SM
+_MAX_SM_THREADS = 2048
+_MAX_RESIDENT_BLOCKS = 32
+_OWNERS_ENOUGH = 1024             # owner lanes an SM: past this, wider tiles
+_PARTIAL_CAP = 256 << 20          # bytes of per-chunk partial histograms
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
-def _stride(nbin: int) -> int:
-    """Floats of one (feature, channel) histogram in shared memory: the
-    nbin slots and a trash slot, rounded up to an odd count."""
-    return (nbin + 1) | 1
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
 
-def _smem_bytes(fb: int, cb: int, nbin: int) -> int:
-    """Shared memory of a block that owns fb features x cb channels."""
-    return 4 * (fb * cb * _stride(nbin) + fb * (_TILE_ROWS + 1)
-                + _TILE_ROWS * (cb | 1))
+def _smem_bytes(wsz: int, nbin: int, warps: int, cols: int, fb: int,
+                cb: int, t_rows: int) -> int:
+    """Shared memory of a block (csrc/histogram.cu ``smem_bytes``):
+    ``warps`` (nbin x cols) float matrices, rounded up to 16 bytes, and a
+    ring of :data:`_STAGES` tiles of ``t_rows`` rows of fb features' int32
+    bins and cb channels' weights of ``wsz`` bytes, each row padded."""
+    hist = _round16(warps * nbin * cols * 4)
+    stage = fb * (4 * t_rows + _ROW_PAD) + cb * (wsz * t_rows + _ROW_PAD)
+    return hist + _STAGES * stage
+
+
+# The widest histogram: one warp of one column, one feature and one float32
+# channel staged 8 rows at a time.
+MAX_NBIN = (_BLOCK_SMEM_BYTES - _smem_bytes(4, 0, 1, 1, 1, 1, 8)) // 4
+
+
+@dataclass(frozen=True)
+class HistPlan:
+    """Launch plan of the histogram kernel: blocks of ``warps`` warps own
+    ``features`` x ``channels`` (feature, channel) pairs, ``cols`` a warp
+    (pair p = feature * channels + channel is warp p // cols, lane
+    p % cols); rows in ``chunks`` chunks of ``chunk_rows``, staged
+    ``tile_rows`` at a time through the kernel's ring of :data:`_STAGES`
+    tiles; ``uniform`` where every warp is one feature's 32 channels, so
+    that the kernel takes its one-feature-warp add path (8 rows a group,
+    the tile's bins prepared once for the warp; else 4 rows a group); the
+    block's shared memory and the chunk partials' bytes (0 where one chunk
+    writes the output itself)."""
+
+    warps: int
+    cols: int
+    features: int
+    channels: int
+    tile_rows: int
+    uniform: bool
+    chunks: int
+    chunk_rows: int
+    smem: int
+    partial_bytes: int
+
+
+def _balanced(total: int, most: int) -> int:
+    """The group size that cuts ``total`` into as few groups of at most
+    ``most`` as possible, evenly."""
+    groups = -(-total // most)
+    return -(-total // groups)
+
+
+@functools.lru_cache(maxsize=256)
+def _hist_plan(n: int, f: int, nw: int, nbin: int, dtype,
+               sms: int) -> HistPlan:
+    """Plan the kernel for (f, n) bins, nw channels of ``dtype`` weights
+    and nbin slots on a card of ``sms`` SMs.  Each warp takes the widest
+    column count (32, then 16, ... 1) whose matrices fit; among the block
+    shapes of that width, the one with the most owner lanes resident on
+    an SM (up to :data:`_OWNERS_ENOUGH`), then the widest tile, then the
+    most warps.  The row chunks fill the card about once, within the
+    partial cap.  Raises ``ValueError`` past :data:`MAX_NBIN`.  Cached:
+    the wrapper plans every call."""
+    if nbin > MAX_NBIN:
+        raise ValueError(f"nbin={nbin}: the histogram kernel takes "
+                         f"nbin <= {MAX_NBIN} (one {MAX_NBIN}-slot float32 "
+                         f"histogram in the {_BLOCK_SMEM_BYTES} bytes of "
+                         "shared memory of a block)")
+    wsz = 2 if as_torch_dtype(dtype) == torch.bfloat16 else 4
+    best = None
+    for tiles in (_TILE_ROWS, _NARROW_TILE_ROWS):
+        for cols in (32, 16, 8, 4, 2, 1):
+            for most in range(1, _MAX_WARPS + 1):
+                cb = _balanced(nw, min(32, most * cols))
+                fb = _balanced(f, max(1, most * cols // cb))
+                warps = -(-fb * cb // cols)
+                for t in tiles:
+                    smem = _smem_bytes(wsz, nbin, warps, cols, fb, cb, t)
+                    if smem > _BLOCK_SMEM_BYTES:
+                        continue
+                    per_sm = min(_MAX_RESIDENT_BLOCKS,
+                                 _MAX_SM_THREADS // (32 * warps),
+                                 _SM_SMEM_BYTES
+                                 // (smem + _SMEM_PER_BLOCK_RESERVED))
+                    key = (min(fb * cb * per_sm, _OWNERS_ENOUGH), t, warps)
+                    if best is None or key > best[0]:
+                        best = key, (warps, cols, fb, cb, t, smem, per_sm)
+            if best is not None:
+                break
+        if best is not None:
+            break
+    warps, cols, fb, cb, t, smem, per_sm = best[1]
+    blocks = -(-f // fb) * -(-nw // cb)
+    per_chunk = nw * f * nbin * 4
+    chunks = max(1, min(-(-sms * per_sm // blocks), -(-n // t), 65535,
+                        _PARTIAL_CAP // per_chunk))
+    chunk_rows = -(-(-(-n // chunks)) // t) * t
+    chunks = -(-n // chunk_rows)
+    return HistPlan(warps, cols, fb, cb, t, cols == cb == 32 and nw % 32 == 0,
+                    chunks, chunk_rows, smem,
+                    0 if chunks == 1 else chunks * per_chunk)
 
 
 def max_channels(nbin: int, f: int) -> int:
     """Most weight channels one launch takes.  The kernel splits both
-    channels and features over blocks, so this is 64 whenever one
-    (feature, channel) histogram of ``nbin`` slots fits a block's shared
-    memory, and ``f`` does not enter (it is kept for the JAX package's
-    signature); a larger ``nbin`` raises ``ValueError``."""
-    if _smem_bytes(1, 1, nbin) > _BLOCK_SMEM_BYTES:
-        raise ValueError(f"nbin={nbin}: one histogram does not fit the "
-                         f"{_BLOCK_SMEM_BYTES} bytes of shared memory of a "
-                         "block")
+    channels and features over blocks, so this is 64 for every nbin its
+    plan takes (up to :data:`MAX_NBIN`), and ``f`` does not enter (it is
+    kept for the JAX package's signature); a larger ``nbin`` raises
+    ``ValueError``."""
+    _hist_plan(1, max(1, f), _MAX_CHANNELS, nbin, torch.float32, 1)
     return _MAX_CHANNELS
 
 
@@ -102,44 +199,21 @@ def _lib() -> ctypes.CDLL:
 
         lib = _build.load("histogram")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gbdt_hist.argtypes = [p, ll, i, p, i, i, i, i, i, ll, i, p, p,
-                                  p]
+        lib.gbdt_hist.argtypes = [p, ll, i, p, i, i, i, i, i, i, i, i, i,
+                                  ll, i, p, p, p]
         lib.gbdt_hist.restype = i
+        lib.gbdt_hist_smem_bytes.argtypes = [i] * 7
+        lib.gbdt_hist_smem_bytes.restype = ll
         lib.gbdt_hist_error_string.argtypes = [i]
         lib.gbdt_hist_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _balanced(total: int, most: int) -> int:
-    """The group size that cuts ``total`` into as few groups of at most
-    ``most`` as possible, evenly."""
-    groups = -(-total // most)
-    return -(-total // groups)
-
-
-def _plan(device: torch.device, n: int, f: int, nw: int, nbin: int):
-    """(fb, cb, chunk_rows, n_chunks): a block owns fb features x cb
-    channels, about square within the block's histogram budget, so that
-    each staged bin and weight feeds several adds; the rows are cut into
-    chunks so that the grid fills every SM about once."""
-    pairs = max(1, min(_THREADS,
-                       _HIST_BYTES_PER_BLOCK // (_stride(nbin) * 4)))
-    cb = _balanced(nw, max(1, math.isqrt(pairs)))
-    fb = _balanced(f, max(1, pairs // cb))
-    smem = _smem_bytes(fb, cb, nbin)
-    per_sm = max(1, min(2048 // _THREADS,
-                        _SM_SMEM_BYTES // (smem + _SMEM_PER_BLOCK_RESERVED)))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = -(-f // fb) * -(-nw // cb)
-    n_chunks = max(1, min(-(-n // _TILE_ROWS), sms * per_sm // blocks))
-    chunk_rows = -(-n // n_chunks)
-    chunk_rows = -(-chunk_rows // _TILE_ROWS) * _TILE_ROWS
-    return fb, cb, chunk_rows, -(-n // chunk_rows)
-
-
 def _hist_cuda(bins_t: torch.Tensor, w: torch.Tensor, nbin: int,
-               cdt: torch.dtype) -> torch.Tensor:
+               cdt: torch.dtype, plan: HistPlan | None = None) -> torch.Tensor:
+    """The kernel on ``plan``, by default :func:`_hist_plan`'s (a
+    measurement may pass another, such as the general add path's)."""
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"hist_fused_multi on CUDA computes in float32 or "
                         f"bfloat16, got {cdt}")
@@ -151,14 +225,18 @@ def _hist_cuda(bins_t: torch.Tensor, w: torch.Tensor, nbin: int,
     if n == 0 or f == 0:
         return out.zero_()
     lib = _lib()
-    fb, cb, chunk_rows, n_chunks = _plan(w.device, n, f, nw, nbin)
-    partial = torch.empty((n_chunks, nw, f, nbin), dtype=torch.float32,
+    if plan is None:
+        sms = torch.cuda.get_device_properties(w.device).multi_processor_count
+        plan = _hist_plan(n, f, nw, nbin, cdt, sms)
+    partial = torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
                           device=w.device)
     with torch.cuda.device(w.device):
         err = lib.gbdt_hist(
             bins_t.data_ptr(), n, f, w.data_ptr(), int(cdt == torch.bfloat16),
-            nw, nbin, fb, cb, chunk_rows, n_chunks, partial.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            nw, nbin, plan.warps, plan.cols, plan.features, plan.channels,
+            plan.tile_rows, int(plan.uniform), plan.chunk_rows, plan.chunks,
+            partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gbdt_hist launch failed: CUDA error {err} "
                            f"({lib.gbdt_hist_error_string(err).decode()})")

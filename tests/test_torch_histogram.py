@@ -50,7 +50,8 @@ def _inputs(n, f, nbin, seed):
 # ------------------------------------------------------------- kernel
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,f,nbin,nw", [(1000, 5, 16, 2), (513, 3, 7, 3),
-                                         (300, 9, 256, 2), (700, 4, 257, 6)])
+                                         (300, 9, 256, 2), (700, 4, 257, 6),
+                                         (600, 3, 1024, 5)])
 def test_hist_fused_multi_matches_jax(n, f, nbin, nw, dtype):
     rng = np.random.default_rng(n + nw)
     bins_t = rng.integers(0, nbin, (f, n)).astype(np.int32)
@@ -104,16 +105,17 @@ def test_channel_count_checked(nw):
 def test_max_channels_from_shared_memory():
     """The port's channel budget: the kernel splits channels and features
     over blocks, so it takes 64 channels at any f, up to the nbin whose
-    single histogram still fits a block's shared memory."""
+    one-column histogram and narrowest staging ring still fit a block's
+    shared memory (``_hist_plan``'s limit, ``MAX_NBIN``)."""
     assert tk.max_channels(257, 64) == tk.max_channels(4096, 1) == 64
-    top = 58045                 # (nbin + 1) | 1 floats and the tiles fit
-    assert tk._smem_bytes(1, 1, top) <= tk._BLOCK_SMEM_BYTES
-    assert tk.max_channels(top, 1) == 64
-    with pytest.raises(ValueError, match="does not fit"):
-        tk.max_channels(top + 2, 1)
-    with pytest.raises(ValueError, match="does not fit"):
+    top = 58045                 # the top nbin of the first kernel's layout
+    assert top <= tk.MAX_NBIN
+    assert tk.max_channels(top, 1) == tk.max_channels(tk.MAX_NBIN, 1) == 64
+    with pytest.raises(ValueError, match="shared memory of a block"):
+        tk.max_channels(tk.MAX_NBIN + 1, 1)
+    with pytest.raises(ValueError, match="shared memory of a block"):
         tk.hist_fused_multi(torch.zeros((1, 10), dtype=torch.int32),
-                            torch.zeros((2, 10)), top + 2)
+                            torch.zeros((2, 10)), tk.MAX_NBIN + 1)
 
 
 def test_no_kernel_for_other_devices():
