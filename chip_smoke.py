@@ -76,9 +76,18 @@ Phases, each raising on failure (the script then exits non-zero):
 14. ``rabit_tpu_torch.tools.ici_bench`` over 8 ranks at 10^4 .. 10^7 and
     2^26 floats (psum, ring, pallas), and over 2 and 4 ranks at 10^7;
 15. ``rabit_tpu_torch.tools.kernel_experiments`` with its default specs
-    (every classify stage of the B1 variant study, on the previous B1
-    kernel of ``kmeans_stats.cu``, each checked against its plain
-    version before it is timed), then each stage's kernel timed alone.
+    (every classify stage of the B1 variant study, P1, in the one-pass
+    kernel of ``kmeans_stats_variant.cu``, each checked against its plain
+    version before it is timed); then every stage against its plain
+    version, each launched twice for the same bits and with its plan's
+    shared memory against the kernel source's, on clustered rows at
+    2^19 x 256 (counts exact where they count rows), 3,001 x 250 at
+    k=10, d=2048 (several column slices) and a strided view into rows of
+    257, in float32 and bfloat16, and on a ``maxcmp`` tie (centroid 5 a
+    copy of 2) whose rows count in both clusters; ``simonlyT`` in
+    float32 on random rows against a float64 sum; P1 ``argmax`` (one
+    read of x) timed beside B1 (two) on the same inputs, in bfloat16 and
+    float32; then each stage's kernel timed alone.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -94,6 +103,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -318,9 +328,16 @@ def dense_split_ms(torch, kk, cent, x, valid):
                                  ("reduce", 4))}
 
 
-def sass_hmma(path):
-    """HMMA instructions in the SASS of the library at ``path``, or why
-    they could not be counted."""
+SASS_OPS = ("HMMA", "LDSM", "LDS")
+_SASS_OP = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_counts(path):
+    """Counts of the instructions of ``SASS_OPS`` in the SASS of the
+    library at ``path`` (tensor-core products, ``ldmatrix`` loads, other
+    shared-memory loads; by opcode, whatever its suffixes), or None and
+    why they could not be counted."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
@@ -331,7 +348,11 @@ def sass_hmma(path):
                          text=True, timeout=300)
     if out.returncode != 0:
         return None, f"cuobjdump failed: {out.stderr.strip()[:200]}"
-    return sum("HMMA" in line for line in out.stdout.splitlines()), "cuobjdump"
+    counts = dict.fromkeys(SASS_OPS, 0)
+    for m in _SASS_OP.finditer(out.stdout):
+        if m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return counts, "cuobjdump"
 
 
 def check_ell(torch, kk, name, cent, idx, val, valid, d, cdt):
@@ -1214,9 +1235,168 @@ def dense_wide_run(torch, rabit_tpu_torch, km, kk, label, n, tier, cdt):
     return launches["kmeans_stats_dense"]
 
 
+def variant_plan(torch, kk, x, k):
+    """P1's plan for x and k, its shared memory checked against the
+    kernel source's (``kmeans_stats_variant_smem_bytes``)."""
+    n, d = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kk._variant_plan(n, d, k, x.dtype, sms)
+    got = kk._variant_lib().kmeans_stats_variant_smem_bytes(
+        int(x.dtype == torch.bfloat16), plan.kp, d, plan.ds, plan.slices,
+        int(plan.resident), plan.prefetch)
+    if got != plan.smem:
+        raise AssertionError(f"P1 plan for ({n}, {d}) k={k} {x.dtype}: "
+                             f"shared memory {plan.smem} B, the kernel's "
+                             f"source says {got} B")
+    return plan
+
+
+def check_variant(torch, kk, ke, name, mode, cent, x, valid, block=2048):
+    """P1's stage ``mode`` against its plain version: the same bits from
+    two launches, counts exact where they count rows, everything within
+    the sum bar.  Returns (result, max |kernel - plain|, plan)."""
+    plan = variant_plan(torch, kk, x, cent.shape[0])
+    got = kk.kmeans_stats_variant(cent, x, valid, mode, block)
+    again = kk.kmeans_stats_variant(cent, x, valid, mode, block)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {mode}: two launches gave different "
+                             "bits")
+    want = kk._variant_plain(kk._normalized(cent, x.dtype), x, valid, mode,
+                             block)
+    if mode in ke._ROW_COUNTS:
+        err = compare(torch, f"{name} {mode}", got, want)
+    else:
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {mode}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=SUM_ATOL,
+                                   msg=lambda m: f"{name} {mode}: {m}")
+        err = float((got - want).abs().max())
+    return got, err, plan
+
+
+def variant_kernel_checks(torch, kk, ke):
+    """Phase 15's kernel checks: every P1 stage against its plain version
+    on clustered rows at the study's shape, on shapes that reach the
+    masks and the column slices (3,001 x 250 at k=10, d=2048, a strided
+    view into rows of 257), each in float32 and bfloat16, and the
+    ``maxcmp`` tie (a copy of centroid 2 as centroid 5) counted in both
+    clusters."""
+    log("    P1 kernel vs plain (same bits twice, counts exact where they "
+        "count rows, sums within the bar)")
+    plans = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [("clustered n=2^19 d=256 k=64",
+                  clustered_dense(torch, 1 << 19, 256, K, dtype, 40)),
+                 ("ragged n=3001 d=250 k=10",
+                  clustered_dense(torch, 3001, 250, 10, dtype, 41)),
+                 ("wide n=2^16 d=2048 k=64",
+                  clustered_dense(torch, 1 << 16, 2048, K, dtype, 42))]
+        cent, x, valid = clustered_dense(torch, 1 << 16, 257, K, dtype, 43)
+        cases.append(("strided view n=2^16 d=256 (rows of 257) k=64",
+                      (cent[:, :256], x[:, :256], valid)))
+        for name, (cent, x, valid) in cases:
+            errs = []
+            for mode in kk.VARIANTS:
+                _got, err, plan = check_variant(torch, kk, ke,
+                                                f"{name} {dtype}", mode,
+                                                cent, x, valid)
+                errs.append(err)
+            plans.append(plan)
+            log(f"    {name} {dtype}: all {len(kk.VARIANTS)} stages ok, max "
+                f"|kernel - plain| {max(errs):.3g}; plan kp={plan.kp}, "
+                f"{plan.slices} slice(s) of {plan.ds}, centroids "
+                f"{'resident' if plan.resident else 'streamed'}, prefetch "
+                f"{plan.prefetch}, grid {plan.grid}, {plan.smem} B shared")
+        cent, x, valid = clustered_dense(torch, 1 << 16, 256, K, dtype, 44,
+                                         tie=(2, 5))
+        got, _err, _plan = check_variant(torch, kk, ke,
+                                         f"tie 2 = 5 {dtype}", "maxcmp",
+                                         cent, x, valid)
+        tied = float(got[2, -1])
+        if not (tied > 0 and float(got[5, -1]) == tied
+                and float(got[:, -1].sum()) == float(valid.sum()) + tied):
+            raise AssertionError(f"maxcmp tie {dtype}: counts {tied} on 2, "
+                                 f"{float(got[5, -1])} on 5")
+        log(f"    maxcmp tie {dtype}: {tied:.0f} tied rows counted on both "
+            "2 and 5")
+        del cent, x, valid, cases
+    for what, seen in (("several column slices",
+                        any(p.slices > 1 for p in plans)),
+                       ("resident centroids", any(p.resident for p in plans)),
+                       ("streamed centroids",
+                        any(not p.resident for p in plans))):
+        if not seen:
+            raise AssertionError(f"phase 15 never ran {what}")
+
+
+def simonly_t_float64(torch, kk):
+    """``simonlyT`` in float32 on the random rows of phase 15's timing
+    (seed 24): its sums are x's column sums over 2^19 rows, where the
+    plain version's float32 product misses the sum bar against the
+    kernel (ROADMAP C).  The kernel must meet the bar against a float64
+    sum; the plain version's distance from it is printed."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(1 << 19, 256, generator=g, device="cuda")
+    c = torch.randn(K, 256, generator=g, device="cuda")
+    v = torch.ones(1 << 19, device="cuda")
+    got = kk.kmeans_stats_variant(c, x, v, "simonlyT")[:, :-1]
+    plain = kk._variant_plain(kk._normalized(c, torch.float32), x, v,
+                              "simonlyT", 2048)[:, :-1]
+    exact = x.double().sum(0).expand(K, -1)
+    torch.testing.assert_close(got.double(), exact, rtol=SUM_RTOL,
+                               atol=SUM_ATOL,
+                               msg=lambda m: f"simonlyT f32 vs float64: {m}")
+    err, plain_err = (float((t.double() - exact).abs().max())
+                      for t in (got, plain))
+    log(f"    simonlyT float32 column sums (2^19 random rows) against "
+        f"float64: kernel {err:.3g} (within the bar), plain {plain_err:.3g}")
+    return err, plain_err
+
+
+def one_pass_vs_two_pass(torch, kk):
+    """P1 ``argmax`` (one read of x) beside B1 (classify, then fold: two
+    reads) on the same clustered 2^19 x 256 x 64 inputs, bfloat16 and
+    float32, interleaved B1, P1, P1, B1 three times; medians of the
+    per-turn medians."""
+    out = {}
+    n, d = 1 << 19, 256
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        cent, x, valid = clustered_dense(torch, n, d, K, dtype, 45)
+        one = kk.kmeans_stats_variant(cent, x, valid, "argmax")
+        two = kk.kmeans_stats_fused(cent, x, valid)
+        err = compare(torch, f"P1 argmax vs B1 {name}", one, two)
+        fns = {"one": lambda: kk.kmeans_stats_variant(cent, x, valid,
+                                                      "argmax"),
+               "two": lambda: kk.kmeans_stats_fused(cent, x, valid)}
+        ts = {"one": [], "two": []}
+        b2b = {"one": [], "two": []}
+        for who in ("two", "one", "one", "two") * 3:
+            ts[who].append(time_ms(torch, fns[who]))
+            b2b[who].append(back_to_back_ms(torch, fns[who], 20))
+        read = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(
+            one_pass_ms=statistics.median(ts["one"]),
+            two_pass_ms=statistics.median(ts["two"]),
+            one_pass_back_to_back_ms=statistics.median(b2b["one"]),
+            two_pass_back_to_back_ms=statistics.median(b2b["two"]),
+            max_abs_diff=err)
+        log(f"    one pass (P1 argmax) {out[name]['one_pass_ms']:.4f} ms "
+            f"({out[name]['one_pass_back_to_back_ms']:.4f} back to back) vs "
+            f"two passes (B1) {out[name]['two_pass_ms']:.4f} ms "
+            f"({out[name]['two_pass_back_to_back_ms']:.4f}) at ({n}, {d}) "
+            f"{name} k={K}; one read of x {read:.4f} ms; counts equal, sums "
+            f"within {err:.3g}")
+        del cent, x, valid
+    return out
+
+
 def variant_study(torch, kk):
-    """Phase 15: the kernel_experiments tool, then each classify stage's
-    kernel timed alone; returns the JSON entries."""
+    """Phase 15: the kernel_experiments tool, then P1's kernel checks, P1
+    ``argmax`` beside B1, and each classify stage's kernel timed alone;
+    returns the JSON entries."""
+    from rabit_tpu_torch.ops import _build
     from rabit_tpu_torch.tools import kernel_experiments as ke
 
     log("[15] python -m rabit_tpu_torch.tools.kernel_experiments")
@@ -1228,6 +1408,16 @@ def variant_study(torch, kk):
         if launches[f"p1_{mode}"] == 0:
             raise AssertionError(f"P1 {mode}: no launch in the study")
     log(f"    launches {launches}")
+    variant_kernel_checks(torch, kk, ke)
+    simonly_t_float64(torch, kk)
+    passes = one_pass_vs_two_pass(torch, kk)
+    sass = {}
+    for lib in ("kmeans_stats_variant", "kmeans_stats_dense"):
+        counts, how = sass_counts(_build.library_path(lib))
+        sass[lib] = counts if counts is not None else how
+        log(f"    {lib} SASS ({how} -sass on the built library): " + (
+            ", ".join(f"{op} {c}" for op, c in counts.items())
+            if counts is not None else "not inspected"))
     n, d, block = ke.N, ke.D, 2048
     g = torch.Generator(device="cuda").manual_seed(24)
     x = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
@@ -1239,6 +1429,8 @@ def variant_study(torch, kk):
         err = ke.check_variant(mode, block, torch.bfloat16, c, x, v)
         ms = time_ms(torch, lambda: kk.kmeans_stats_variant(c, x, v, mode,
                                                             block))
+        b2b = back_to_back_ms(torch, lambda: kk.kmeans_stats_variant(
+            c, x, v, mode, block), 20)
         plain_ms = time_ms(torch, lambda: kk._variant_plain(cn, x, v, mode,
                                                             block), 1, 3)
         nbytes = n * d * 2 + n * 4 + K * d * 2 + K * (d + 1) * 4
@@ -1248,20 +1440,24 @@ def variant_study(torch, kk):
         by_ops = ops / PEAK_OPS["bfloat16"]
         line = dict(
             name=f"p1_{mode}", route="cuda",
-            source="rabit_tpu_torch/ops/csrc/kmeans_stats.cu",
+            source="rabit_tpu_torch/ops/csrc/kmeans_stats_variant.cu",
             replaces=("tools/kernel_experiments.py:138"
                       if mode.endswith("T") else
                       "tools/kernel_experiments.py:157"),
             launches=launches[f"p1_{mode}"], max_abs_err=err, ms=ms,
-            kernel_ms=ms, plain_ms=plain_ms,
+            kernel_ms=ms, back_to_back_ms=b2b, plain_ms=plain_ms,
             bound_ms=max(by_bytes, by_ops) * 1e3,
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None, library="none: no single PyTorch call",
             shape=f"x ({n}, {d}) bfloat16, k={K}, block={block}",
             study_ms_per_iter={s: r["ms"] for s, r in study.items()
                                if r["mode"] == mode})
-        log(f"    p1_{mode}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {line['bound_ms']:.3f} ms by {line['bound_by']}, max "
+        if mode == "argmax":
+            line["one_pass_vs_two_pass"] = passes
+            line["sass"] = sass
+        log(f"    p1_{mode}: kernel {ms:.4f} ms ({b2b:.4f} back to back), "
+            f"plain {plain_ms:.3f} ms, "
+            f"bound {line['bound_ms']:.4f} ms by {line['bound_by']}, max "
             f"|kernel - plain| {err:.3g}")
         lines.append(line)
     return lines
@@ -1537,14 +1733,15 @@ def main() -> int:
         wide_ms = time_ms(torch, lambda: kk.kmeans_stats_fused(cw, xw, vw))
         wsplit = dense_split_ms(torch, kk, cw, xw, vw)
         read = xw.numel() * xw.element_size() / HBM_BYTES_PER_S * 1e3
-        wide[name] = dict(ms=wide_ms, read_x_ms=read, **{
+        wide[name] = dict(ms=wide_ms, **{
             f"{stage}_ms": t for stage, t in wsplit.items()})
         log(f"    kmeans_stats_dense at (524288, 2048) {name} k={K}: "
             f"{wide_ms:.3f} ms = classify {wsplit['classify']:.3f} + fold "
             f"{wsplit['fold']:.3f} + reduce {wsplit['reduce']:.3f} ms apart "
             f"(one read of x: {read:.3f} ms)")
         del cw, xw, vw
-    hmma, how = sass_hmma(_build.library_path("kmeans_stats_dense"))
+    sass, how = sass_counts(_build.library_path("kmeans_stats_dense"))
+    hmma = sass["HMMA"] if sass is not None else None
     log(f"    kmeans_stats_dense SASS: " + (
         f"{hmma} HMMA instructions ({how} -sass on the built library)"
         if hmma is not None else f"not inspected: {how}"))

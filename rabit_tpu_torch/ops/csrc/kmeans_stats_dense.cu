@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas TPU kernel rabit_tpu/ops/kmeans_kernel.py:_stats_kernel
 // (dense rows, kmeans_stats_fused) -> kmeans_stats_dense.  The B1 variant
-// study (tools/kernel_experiments.py) stays on kmeans_stats.cu.
+// study (tools/kernel_experiments.py) has a one-pass kernel of its own,
+// kmeans_stats_variant.cu; kmeans_stats.cu keeps the previous B1.
 //
 // Per row: similarity to every normalised centroid, the first index of the
 // maximum, then the row (times its validity) added into that cluster's sum

@@ -12,32 +12,38 @@ counts accumulate in float32, weighted by the row's validity.
   ``rabit_tpu/ops/kmeans_kernel.py:_stats_kernel``;
 * :func:`kmeans_ell_stats_fused` (padded-ELL rows) replaces
   ``rabit_tpu/ops/kmeans_kernel.py:_ell_stats_kernel``;
-* :func:`kmeans_stats_variant` runs the previous one-pass dense kernel
-  with another classify stage, one of :data:`VARIANTS`: the B1 variant
-  study of ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at
-  :138 and :157), whose modes replace that kernel's argmax stage and
-  keep every other line.
+* :func:`kmeans_stats_variant` runs the dense pass with another
+  classify stage, one of :data:`VARIANTS`: the B1 variant study of
+  ``tools/kernel_experiments.py`` (its ``pl.pallas_call`` at :138 and
+  :157), whose modes replace that kernel's argmax stage and keep every
+  other line.
 
 On a CUDA tensor each launches its kernel (the dense one from
-``csrc/kmeans_stats_dense.cu``, the variants from ``csrc/kmeans_stats.cu``,
-the ELL one from ``csrc/kmeans_ell_stats.cu``, built at first use) or
-raises; on a CPU tensor it runs the plain version (``_stats_plain``,
+``csrc/kmeans_stats_dense.cu``, the variants from
+``csrc/kmeans_stats_variant.cu``, the ELL one from
+``csrc/kmeans_ell_stats.cu``, built at first use) or raises; on a CPU
+tensor it runs the plain version (``_stats_plain``, ``_variant_plain``,
 ``_ell_stats_plain``), which is also what the card's kernels are checked
-against.  :func:`_dense_plan` sizes the dense kernel's launches in
-Python, so the CPU tests reach its limits.  ``_ell_stats_sparse_plain``
-mirrors the ELL kernel's sparse arithmetic (merge, gather-similarity, argmax,
-``index_add_``) for the CPU tests; nothing on the CUDA route calls it.
-``LAUNCHES`` counts kernel launches.
+against.  :func:`_dense_plan` and :func:`_variant_plan` size the dense
+and variant kernels' launches in Python, so the CPU tests reach their
+limits.  ``_ell_stats_sparse_plain`` mirrors the ELL kernel's sparse
+arithmetic (merge, gather-similarity, argmax, ``index_add_``) and
+``_variant_blocked_plain`` the variant kernel's grouping (tiles dealt to
+blocks, per-block partials and keep-alive sums) for the CPU tests;
+nothing on the CUDA route calls them.  ``LAUNCHES`` counts kernel
+launches.  ``_lib`` and ``_plan`` load and plan the previous dense kernel
+(``csrc/kmeans_stats.cu``), which only ``tools/stats_ab.py`` runs.
 
 What bounds the kernels on an H100, and what the design does about it,
 is set out at the top of each CUDA source: the dense kernel classifies
 (bf16 similarity on the tensor cores, float32 on the CUDA cores) and
 then folds in a second pass, so it is bound by two reads of x; the
-variants' kernel runs the similarity as float32 FMAs on the CUDA cores
-and is bound by operations; the ELL kernel works on each row's nonzeros
-alone and is bound by the single read of its slots.  The TPU's layout
-padding (128-lane features, 16384-row tiles) is not needed: the kernels
-mask their own ragged edges.
+variants' kernel reads each row tile once and runs both of its products
+on it from shared memory (bf16 on the tensor cores), bound by that one
+read; the ELL kernel works on each row's nonzeros alone and is bound by
+the single read of its slots.  The TPU's layout padding (128-lane
+features, 16384-row tiles) is not needed: the kernels mask their own
+ragged edges.
 """
 from __future__ import annotations
 
@@ -59,10 +65,10 @@ LAUNCHES = {"kmeans_stats_dense": 0, "kmeans_stats_ell": 0,
 
 _PLAIN_CHUNK_ROWS = 1 << 18
 _SPARSE_PLAIN_CHUNK_ROWS = 1 << 12
-_TILE_ROWS = 32                   # rows per tile in the CUDA kernels
+_TILE_ROWS = 32                   # rows a tile in the previous dense kernel
 _SM_SMEM_BYTES = 233472           # shared memory of one H100 SM
 _SMEM_PER_BLOCK_RESERVED = 1024
-_MAX_BLOCKS_PER_SM = 8            # 2048 threads / 256 per block
+_MAX_BLOCKS_PER_SM = 8            # 2048 threads / its 256 a block
 _MAX_SM_THREADS = 2048
 _MAX_RESIDENT_BLOCKS = 32         # blocks resident on one SM
 _ELL_WARPS = 32                   # warps in the ELL kernel's block
@@ -84,6 +90,22 @@ _DENSE_FOLD_WAVES = 2             # fold blocks: this many per resident slot
 # the fold holds k*dt + k floats and 256 (assign, valid) pairs: dt=1 gives
 # the largest k
 DENSE_MAX_K = (_DENSE_MAX_SMEM - 8 * _DENSE_FOLD_BATCH) // 8
+# the variant kernel (csrc/kmeans_stats_variant.cu), whose constants these
+# restate: 256 threads walk tiles of 64 rows in chunks of 64 features, up
+# to 4 chunks in flight; centroid columns pad to a power of two in [32,
+# 128]; the (kp, ds) sums accumulator is 16384 float32 registers a block;
+# shared-memory regions start on 128 bytes; column slices lie on the
+# grid's y axis
+_VAR_ROWS = 64
+_VAR_CHUNK = 64
+_VAR_THREADS = 256
+_VAR_MIN_KP = 32
+VARIANT_MAX_K = 128
+_VAR_ACC = 16384
+_VAR_MAX_PREFETCH = 4
+_VAR_SIM_PAD = 4
+_VAR_ALIGN = 128
+VARIANT_MAX_SLICES = 65535
 
 
 def _normalized(centroids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -242,42 +264,67 @@ def _variant_plain(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     return out
 
 
+def _variant_blocked_plain(cn: torch.Tensor, x: torch.Tensor,
+                           valid: torch.Tensor, mode: str, block: int,
+                           grid: int) -> torch.Tensor:
+    """Plain mirror of the variant kernel's grouping, for the CPU tests:
+    tiles of 64 rows dealt to ``grid`` blocks in turn; a block adds up its
+    tiles' stats in order, each tile with its own keep-alive sum for
+    ``simonlyT`` and ``cheapassignT``; the block partials are summed in
+    block order.  Arguments as for :func:`_variant_plain`."""
+    k, d = cn.shape
+    cnf = cn.float()
+    out = torch.zeros((k, d + 1), dtype=torch.float32, device=x.device)
+    for b in range(grid):
+        part = torch.zeros_like(out)
+        for s in range(b * _VAR_ROWS, x.shape[0], grid * _VAR_ROWS):
+            e = s + _VAR_ROWS
+            part += _variant_core(cnf, x[s:e].float(), valid[s:e].float(),
+                                  mode, block, s, cn.dtype)
+        out += part
+    return out
+
+
 # ----------------------------------------------------------------- CUDA
 _LIB = None
 
 
+def _bind_previous(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the exports of the previous dense kernel's library
+    (``csrc/kmeans_stats.cu``, or another source with its interface)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kmeans_stats_dense.argtypes = [p, ll, i, p, ll, p, i, i, i, i, i, i,
+                                       p, p, p]
+    lib.kmeans_stats_dense.restype = i
+    lib.kmeans_stats_smem_bytes.argtypes = [i, i, i]
+    lib.kmeans_stats_smem_bytes.restype = i
+    lib.kmeans_stats_max_dslice.argtypes = [i, i]
+    lib.kmeans_stats_max_dslice.restype = i
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
+    """The previous dense kernel, ``csrc/kmeans_stats.cu``: what
+    ``tools/stats_ab.py`` holds B1 against by default."""
     global _LIB
     if _LIB is None:
         from rabit_tpu_torch.ops import _build
 
-        lib = _build.load("kmeans_stats")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kmeans_stats_variant.argtypes = [i, p, ll, i, p, ll, p, i, i, i,
-                                             i, i, i, i, p, p, p]
-        lib.kmeans_stats_variant.restype = i
-        lib.kmeans_stats_smem_bytes.argtypes = [i, i, i, i]
-        lib.kmeans_stats_smem_bytes.restype = i
-        lib.kmeans_stats_max_dslice.argtypes = [i, i, i]
-        lib.kmeans_stats_max_dslice.restype = i
-        lib.kmeans_stats_error_string.argtypes = [i]
-        lib.kmeans_stats_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = _bind_previous(_build.load("kmeans_stats"))
     return _LIB
 
 
-def _plan(lib, device: torch.device, n: int, d: int, k: int, mode: int = 0):
-    """(grid_x, ny, dslice): a persistent grid of a few blocks per SM,
-    and the accumulator's column split when (k, d) does not fit beside
-    the row tile in shared memory, for the variants' kernel.  ``mode`` is
-    a :data:`VARIANTS` index (0, ``argmax``, is the dense pass)."""
-    widest = lib.kmeans_stats_max_dslice(d, k, mode)
+def _plan(lib, device: torch.device, n: int, d: int, k: int):
+    """(grid_x, ny, dslice) for the previous dense kernel: a persistent
+    grid of a few blocks per SM, and the accumulator's column split when
+    (k, d) does not fit beside the row tile in shared memory."""
+    widest = lib.kmeans_stats_max_dslice(d, k)
     if widest < 1:
         raise ValueError(f"kmeans stats kernel: d={d}, k={k} does not fit "
                          "the 227 KB of shared memory of one block")
     ny = -(-d // widest)
     dslice = -(-d // ny)
-    smem = lib.kmeans_stats_smem_bytes(d, k, dslice, mode)
+    smem = lib.kmeans_stats_smem_bytes(d, k, dslice)
     per_sm = max(1, min(_MAX_BLOCKS_PER_SM,
                         _SM_SMEM_BYTES // (smem + _SMEM_PER_BLOCK_RESERVED)))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -361,6 +408,113 @@ def _dense_plan(n: int, d: int, k: int, dtype, sms: int) -> DensePlan:
                      0 if chunks == 1 else chunks * per_chunk)
 
 
+def _variant_smem(es: int, kp: int, d: int, ds: int, ny: int,
+                  resident: bool, prefetch: int) -> int:
+    """The variant block's shared memory, region by region as the
+    kernel's ``layout`` lays it out, each region starting on 128 bytes:
+    the resident (d, kp) centroids, two slice buffers of (64, ds), the x
+    ring (several slices only) and the centroid ring (centroids not
+    resident only) of ``prefetch + 1`` chunks, the (64, kp) float32
+    similarity, the weight tile in either layout, per-row scalars and
+    per-thread counts.  Staged rows pad by 16 bytes, the similarity's by
+    4 floats."""
+    pad = 16 // es
+
+    def up(v: int) -> int:
+        return _ceil(v, _VAR_ALIGN) * _VAR_ALIGN
+
+    dp = _ceil(d, _VAR_CHUNK) * _VAR_CHUNK
+    ring = prefetch + 1
+    o = up(dp * (kp + pad) * es) if resident else 0
+    o = up(o + 2 * _VAR_ROWS * (ds + pad) * es)
+    if ny > 1:
+        o = up(o + ring * _VAR_ROWS * (_VAR_CHUNK + pad) * es)
+    if not resident:
+        o = up(o + ring * _VAR_CHUNK * (kp + pad) * es)
+    o = up(o + _VAR_ROWS * (kp + _VAR_SIM_PAD) * 4)
+    o = up(o + max(_VAR_ROWS * (kp + pad), kp * (_VAR_ROWS + pad)) * es)
+    o = up(o + 3 * _VAR_ROWS * 4)
+    return up(o + (_VAR_THREADS + 1) * 4)
+
+
+@dataclass(frozen=True)
+class VariantPlan:
+    """Launch plan of the variant kernel: centroid columns padded to
+    ``kp``; ``slices`` column slices of ``ds`` columns on the grid's y
+    axis; the centroids ``resident`` in shared memory or streamed with
+    each chunk of x; ``prefetch`` chunks in flight; ``grid`` blocks on the
+    x axis; a block's shared memory."""
+
+    kp: int
+    ds: int
+    slices: int
+    resident: bool
+    prefetch: int
+    grid: int
+    smem: int
+
+
+def _variant_plan(n: int, d: int, k: int, dtype, sms: int) -> VariantPlan:
+    """Plan the variant kernel for (n, d) rows of ``dtype`` and k clusters
+    on a card of ``sms`` SMs.  kp is k padded to a power of two in [32,
+    128], which bounds k at :data:`VARIANT_MAX_K`.  The fewest column
+    slices win, since each re-reads every row: ds is a multiple of 64
+    with kp * ds within the block's register accumulator; then the
+    deepest prefetch (at most a tile's chunks), then the centroids
+    resident in shared memory.  The slices share one block an SM on the
+    grid's x axis, at most one a tile.  A d that needs more than
+    :data:`VARIANT_MAX_SLICES` slices raises."""
+    if not 1 <= k <= VARIANT_MAX_K:
+        raise ValueError(f"kmeans_stats_variant on CUDA takes 1 <= k <= "
+                         f"{VARIANT_MAX_K} (centroid columns padded to a "
+                         f"power of two up to {VARIANT_MAX_K} in the "
+                         f"block's similarity tile); got k={k}, d={d}")
+    es = 2 if as_torch_dtype(dtype) == torch.bfloat16 else 4
+    kp = max(_VAR_MIN_KP, 1 << (k - 1).bit_length())
+    nj = _ceil(d, _VAR_CHUNK)
+    for ds in range(min(_VAR_ACC // kp, nj * _VAR_CHUNK), 0, -_VAR_CHUNK):
+        ny = _ceil(d, ds)
+        for prefetch in range(min(_VAR_MAX_PREFETCH, nj), 0, -1):
+            for resident in (True, False):
+                smem = _variant_smem(es, kp, d, ds, ny, resident, prefetch)
+                if smem > _DENSE_MAX_SMEM:
+                    continue
+                if ny > VARIANT_MAX_SLICES:
+                    raise ValueError(
+                        f"kmeans_stats_variant on CUDA takes at most "
+                        f"{VARIANT_MAX_SLICES} column slices (the grid's y "
+                        f"axis) of at most {ds} columns at k={k} in "
+                        f"{dtype}, so d <= {VARIANT_MAX_SLICES * ds}; got "
+                        f"d={d}")
+                grid = max(1, min(_ceil(n, _VAR_ROWS), sms // ny))
+                return VariantPlan(kp, ds, ny, resident, prefetch, grid,
+                                   smem)
+    raise ValueError(f"kmeans_stats_variant on CUDA: no column slice of "
+                     f"d={d} at k={k} fits the 227 KB of shared memory of "
+                     "one block")
+
+
+_VARIANT_LIB = None
+
+
+def _variant_lib() -> ctypes.CDLL:
+    global _VARIANT_LIB
+    if _VARIANT_LIB is None:
+        from rabit_tpu_torch.ops import _build
+
+        lib = _build.load("kmeans_stats_variant")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kmeans_stats_variant.argtypes = [i, p, ll, i, p, ll, p,
+                                             *[i] * 10, p, p, p]
+        lib.kmeans_stats_variant.restype = i
+        lib.kmeans_stats_variant_smem_bytes.argtypes = [i] * 7
+        lib.kmeans_stats_variant_smem_bytes.restype = ll
+        lib.kmeans_stats_variant_error_string.argtypes = [i]
+        lib.kmeans_stats_variant_error_string.restype = ctypes.c_char_p
+        _VARIANT_LIB = lib
+    return _VARIANT_LIB
+
+
 _DENSE_LIB = None
 
 
@@ -436,12 +590,6 @@ def _ell_plan(lib, device: torch.device, n: int, d: int, k: int, nnz: int):
     return grid_x, grid_y, nslices, -(-d // nslices), rpw, global_stage
 
 
-def _check_launch(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.kmeans_stats_error_string(err).decode()})")
-
-
 def _dense_launch(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                   stages: int = 7, ws=None):
     """Launch stages of the dense kernel (bit 0 classify, bit 1 fold,
@@ -481,9 +629,9 @@ def _dense_launch(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
 
 def _dense_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
                 mode: str | None = None, block: int = 1) -> torch.Tensor:
-    """The dense kernel (``kmeans_stats_dense``, its own source) when
-    ``mode`` is None, else classify stage ``mode`` of the variant study
-    (``kmeans_stats_variant``, on ``kmeans_stats.cu``)."""
+    """The dense kernel (``kmeans_stats_dense``) when ``mode`` is None,
+    else classify stage ``mode`` of the variant study
+    (``kmeans_stats_variant``)."""
     name = "kmeans_stats_fused" if mode is None else "kmeans_stats_variant"
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} on CUDA takes float32 or bfloat16 rows, "
@@ -492,29 +640,41 @@ def _dense_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
         x = x.contiguous()
     valid = valid.to(device=x.device, dtype=torch.float32)
     n, d = x.shape
-    k = cn.shape[0]
-    if mode is None:
-        if n == 0:
-            return torch.zeros((k, d + 1), dtype=torch.float32,
-                               device=x.device)
-        out, _ws = _dense_launch(cn, x, valid)
-        LAUNCHES["kmeans_stats_dense"] += 1
-        return out
-    out = torch.empty((k, d + 1), dtype=torch.float32, device=x.device)
     if n == 0:
-        return out.zero_()
-    lib = _lib()
-    code = VARIANTS.index(mode)
-    grid_x, ny, dslice = _plan(lib, x.device, n, d, k, code)
-    partial = torch.empty((grid_x, k, d + 1), dtype=torch.float32,
+        return torch.zeros((cn.shape[0], d + 1), dtype=torch.float32,
+                           device=x.device)
+    if mode is not None:
+        return _variant_cuda(cn, x, valid, mode, block)
+    out, _ws = _dense_launch(cn, x, valid)
+    LAUNCHES["kmeans_stats_dense"] += 1
+    return out
+
+
+def _variant_cuda(cn: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
+                  mode: str, block: int) -> torch.Tensor:
+    """Classify stage ``mode`` of the variant kernel on n >= 1 rows."""
+    lib = _variant_lib()
+    n, d = x.shape
+    k = cn.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = _variant_plan(n, d, k, x.dtype, sms)
+    # centroids transposed, (d, kp), columns past k zero
+    ct = torch.zeros((d, plan.kp), dtype=x.dtype, device=x.device)
+    ct[:, :k] = cn.T
+    partial = torch.empty((plan.grid, k, d + 1), dtype=torch.float32,
                           device=x.device)
+    out = torch.empty((k, d + 1), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.kmeans_stats_variant(
-            code, x.data_ptr(), x.stride(0), int(x.dtype == torch.bfloat16),
-            valid.data_ptr(), valid.stride(0), cn.contiguous().data_ptr(), n,
-            d, k, block, grid_x, ny, dslice, partial.data_ptr(),
+            VARIANTS.index(mode), x.data_ptr(), x.stride(0),
+            int(x.dtype == torch.bfloat16), valid.data_ptr(), valid.stride(0),
+            ct.data_ptr(), n, d, k, plan.kp, block, plan.grid, plan.slices,
+            plan.ds, int(plan.resident), plan.prefetch, partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _check_launch(lib, err, f"{name} {mode}")
+    if err != 0:
+        raise RuntimeError(
+            f"kmeans_stats_variant {mode} launch failed: CUDA error {err} "
+            f"({lib.kmeans_stats_variant_error_string(err).decode()})")
     LAUNCHES[f"p1_{mode}"] += 1
     return out
 

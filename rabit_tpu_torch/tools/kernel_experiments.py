@@ -4,7 +4,11 @@ Counterpart of ``tools/kernel_experiments.py``.  Each spec
 ``mode:block:dtype:vmem`` names a classify stage of
 :func:`rabit_tpu_torch.ops.kmeans_kernel.kmeans_stats_variant` (one of
 its ``VARIANTS``: ``argmax`` is the production stage), the row block
-that ``cheapassignT`` assigns over, and the input dtype.  The ``vmem``
+that ``cheapassignT`` assigns over, and the input dtype.  On the card
+every stage runs in the one-pass kernel of
+``rabit_tpu_torch/ops/csrc/kmeans_stats_variant.cu``: each row tile read
+once, the similarity and the sums product on it (bf16 on the tensor
+cores), only the classify stage between them differing.  The ``vmem``
 field is a TPU scoped-memory limit with no Hopper counterpart: it is
 parsed and ignored, and the tool says so.
 

@@ -3,13 +3,16 @@ source, on the card.
 
 B1 is ``csrc/kmeans_stats_dense.cu``.  The other source is built into a
 library of its own; it must export ``kmeans_stats_dense`` with the
-arguments of ``csrc/kmeans_stats.cu`` (the previous B1, which that file
-still exports beside the variant study, and the default), and the
-``kmeans_stats_max_dslice`` and ``kmeans_stats_smem_bytes`` that plan
-it.  Both run on the same seeded inputs, and the tool prints whether
-they agree and, at the dense16 shape (4,194,304 x 256 bfloat16, k=64),
-the times of the two interleaved (other, this, this, other, three
-rounds) with CUDA events.
+arguments of ``csrc/kmeans_stats.cu`` (the previous B1, the default,
+which is all that file holds), and the ``kmeans_stats_max_dslice`` and
+``kmeans_stats_smem_bytes`` that plan it (``kmeans_kernel._plan``).
+A ``kmeans_stats.cu`` that still exports ``kmeans_stats_variant`` (the
+file before the variant study moved to ``kmeans_stats_variant.cu``)
+takes an extra ``mode`` argument in both planning functions; the tool
+refuses such a library rather than plan it wrongly.  Both run on the
+same seeded inputs, and the tool prints whether they agree and, at the
+dense16 shape (4,194,304 x 256 bfloat16, k=64), the times of the two
+interleaved (other, this, this, other, three rounds) with CUDA events.
 
 The two kernels sum in different orders, so their bits differ: the check
 is ``chip_smoke.py``'s bar, counts exact and sums within ``rtol=1e-4,
@@ -42,21 +45,21 @@ SHAPES = ((1 << 22, 256, 64, torch.bfloat16), (1 << 19, 256, 64, torch.float32),
 
 
 def load_other(src: str) -> ctypes.CDLL:
-    """Build ``src`` with the port's nvcc flags and load it."""
+    """Build ``src`` with the port's nvcc flags and load it (the default
+    source through the port's own build cache)."""
+    if Path(src).resolve() == DEFAULT_OTHER:
+        return kk._lib()
     out = _build.BUILD_DIR / f"lib{Path(src).stem}-other.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.kmeans_stats_dense.argtypes = [p, ll, i, p, ll, p, i, i, i, i, i, i,
-                                       p, p, p]
-    lib.kmeans_stats_dense.restype = i
-    lib.kmeans_stats_max_dslice.argtypes = [i, i, i]
-    lib.kmeans_stats_max_dslice.restype = i
-    lib.kmeans_stats_smem_bytes.argtypes = [i, i, i, i]
-    lib.kmeans_stats_smem_bytes.restype = i
-    return lib
+    if hasattr(lib, "kmeans_stats_variant"):
+        raise ValueError(
+            f"{src} exports kmeans_stats_variant: its kmeans_stats_max_dslice"
+            " and kmeans_stats_smem_bytes take a mode argument this tool does"
+            " not pass; delete the variant study from a copy of it first")
+    return kk._bind_previous(lib)
 
 
 def other_dense(lib, cent, x, valid):
