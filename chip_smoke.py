@@ -87,7 +87,19 @@ Phases, each raising on failure (the script then exits non-zero):
     copy of 2) whose rows count in both clusters; ``simonlyT`` in
     float32 on random rows against a float64 sum; P1 ``argmax`` (one
     read of x) timed beside B1 (two) on the same inputs, in bfloat16 and
-    float32; then each stage's kernel timed alone.
+    float32; then each stage's kernel timed alone;
+16. (run right after 13, while its dense16 shard is still on the card)
+    the wire, on the host of the card machine: the port's ``Tracker(4)``
+    on 127.0.0.1:0 and four rank threads that register through the
+    port's protocol, wire the ``connect``/``naccept`` links of their
+    replies through the port's ``LinkFactory`` (default config, then
+    ``rabit_wire_integrity=crc32c``), compute B1's stats for a quarter of
+    phase 13's dense16 shard each on the card, pass them once around the
+    ring and check that each rank got ring_prev's bytes, then shut down;
+    every reply is held against ``tree_neighbors``, ``ring_neighbors``
+    and ``extra_link_peers``, every thread and the tracker's ``run()``
+    must end within 120 s; then rendezvous-only rounds at worlds 4 and
+    16, five each.  It prints the round, wiring and ring-pass times.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -1463,6 +1475,215 @@ def variant_study(torch, kk):
     return lines
 
 
+# -------------------------------------------------------------- the wire
+WIRE_RANKS = 4                    # ranks of phase 16's wired rounds
+WIRE_TIMEOUT = 120.0              # seconds any rank thread or run() may take
+
+
+def _thread(target, errors, name, *args):
+    """A daemon thread whose exception lands in ``errors``."""
+    import threading
+
+    def body():
+        try:
+            target(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the phase
+            errors.append(e)
+    t = threading.Thread(target=body, name=name, daemon=True)
+    t.start()
+    return t
+
+
+def _join_all(threads, what):
+    deadline = time.monotonic() + WIRE_TIMEOUT
+    for t in threads:
+        t.join(max(deadline - time.monotonic(), 0.0))
+        if t.is_alive():
+            raise AssertionError(f"{what}: {t.name} did not end within "
+                                 f"{WIRE_TIMEOUT:g} s")
+
+
+def wire_rank(i, tracker_port, world, integrity, payload, barrier, out):
+    """One rank of a phase-16 round: register through the port's protocol,
+    wire its links through the port's LinkFactory, pass ``payload(rank)``
+    to ring_next while receiving ring_prev's, then say goodbye.  With
+    ``payload`` None it only registers (a rendezvous-only round)."""
+    import socket
+
+    from rabit_tpu_torch.tracker import protocol as P
+    from rabit_tpu_torch.transport import LinkFactory, TransportConfig
+
+    task = f"rank-{i}"
+    links = {}
+    lst = socket.socket()
+    try:
+        lst.bind(("127.0.0.1", 0))
+        lst.listen(world)
+        lst.settimeout(WIRE_TIMEOUT)
+        with socket.create_connection(("127.0.0.1", tracker_port),
+                                      timeout=WIRE_TIMEOUT) as s:
+            P.send_hello(s, P.CMD_START, task, world)
+            P.send_str(s, "127.0.0.1")
+            P.send_u32(s, lst.getsockname()[1])
+            reply = P.TopologyReply.recv_or_reject(s)
+        rec = out[task] = dict(reply=reply, t_reply=time.perf_counter())
+        if not isinstance(reply, P.TopologyReply):
+            raise AssertionError(f"{task}: registration rejected: {reply}")
+        if payload is not None:
+            factory = LinkFactory(TransportConfig(integrity=integrity),
+                                  reply.rank, timeout=WIRE_TIMEOUT)
+            for peer, host, port in reply.connect:
+                links[peer] = factory.dial(socket.create_connection(
+                    (host, port), timeout=WIRE_TIMEOUT), peer)
+            for _ in range(reply.naccept):
+                link, peer = factory.accept(lst.accept()[0])
+                links[peer] = link
+            rec["t_wired"] = time.perf_counter()
+            rec["frames"] = {p: link._frames for p, link in links.items()}
+            mine = payload(reply.rank)
+            barrier.wait()
+            rec["t_ring"] = time.perf_counter()
+            errors = []
+            send = _thread(links[reply.ring_next].sendall, errors,
+                           f"{task}-send", mine)
+            got = bytes(links[reply.ring_prev].recv_exact(len(mine)))
+            send.join(WIRE_TIMEOUT)
+            if send.is_alive() or errors:
+                raise AssertionError(f"{task}: send to ring_next failed: "
+                                     f"{errors or 'timed out'}")
+            rec.update(t_done=time.perf_counter(), sent=mine, got=got)
+        with socket.create_connection(("127.0.0.1", tracker_port),
+                                      timeout=WIRE_TIMEOUT) as s:
+            P.send_hello(s, P.CMD_SHUTDOWN, task, world)
+    except BaseException:
+        if barrier is not None:
+            barrier.abort()         # the other ranks fail fast
+        raise
+    finally:
+        for link in links.values():
+            link.close()
+        lst.close()
+
+
+def wire_round(world, integrity=None, payload=None):
+    """One round of phase 16 under a fresh port Tracker on 127.0.0.1:0;
+    checks every reply against the handout functions and that the ranks
+    and the tracker's run() end; returns the per-rank records and the
+    round's times in seconds."""
+    import threading
+
+    from rabit_tpu_torch.sched import topo
+    from rabit_tpu_torch.tracker.tracker import (Tracker, ring_neighbors,
+                                                 tree_neighbors)
+
+    tr = Tracker(world, host="127.0.0.1", port=0)
+    tr.start()
+    out, errors = {}, []
+    barrier = threading.Barrier(world, timeout=WIRE_TIMEOUT) \
+        if payload is not None else None
+    try:
+        t0 = time.perf_counter()
+        threads = [_thread(wire_rank, errors, f"rank-{i}", i, tr.port, world,
+                           integrity, payload, barrier, out)
+                   for i in range(world)]
+        _join_all(threads, f"world {world} round")
+        if errors:
+            raise errors[0]
+        tr.join(WIRE_TIMEOUT)
+        if tr._thread.is_alive():
+            raise AssertionError(f"world {world}: the tracker's run() did "
+                                 "not return after every shutdown")
+    finally:
+        tr.stop()
+    ranks = sorted(o["reply"].rank for o in out.values())
+    if ranks != list(range(world)):
+        raise AssertionError(f"world {world}: ranks {ranks} are not a "
+                             "permutation")
+    for task, o in out.items():
+        r = o["reply"]
+        parent, nb = tree_neighbors(r.rank, world)
+        rp, rn = ring_neighbors(r.rank, world)
+        peers = set(nb) | topo.extra_link_peers(r.rank, world, r.groups)
+        peers = (peers | ({rp, rn} if world > 1 else set())) - {r.rank}
+        o["peers"] = peers
+        want = (world, parent, nb, rp, rn,
+                sorted(p for p in peers if p < r.rank),
+                sum(1 for p in peers if p > r.rank), 0, "", [], 0)
+        got = (r.world, r.parent, r.neighbors, r.ring_prev, r.ring_next,
+               [c[0] for c in r.connect], r.naccept, r.epoch, r.sched,
+               r.demoted, r.relaunched)
+        if got != want:
+            raise AssertionError(f"world {world} {task}: reply {got}, the "
+                                 f"handout functions give {want}")
+    times = {"round_s": max(o["t_reply"] for o in out.values()) - t0}
+    if payload is not None:
+        by_rank = {o["reply"].rank: o for o in out.values()}
+        for rank, o in by_rank.items():
+            r = o["reply"]
+            if o["got"] != by_rank[r.ring_prev]["sent"]:
+                raise AssertionError(f"{integrity}: rank {rank} received "
+                                     "other bytes than ring_prev computed")
+            if (set(o["frames"]) != o["peers"]
+                    or set(o["frames"].values()) != {integrity != "off"}):
+                raise AssertionError(f"{integrity}: rank {rank} wired "
+                                     f"{o['frames']} for reply {r}")
+        times["wiring_s"] = (max(o["t_wired"] for o in out.values())
+                             - min(o["t_reply"] for o in out.values()))
+        times["ring_s"] = (max(o["t_done"] for o in out.values())
+                           - min(o["t_ring"] for o in out.values()))
+    return out, times
+
+
+def wire_phase(torch, kk, x, valid, cent):
+    """Phase 16: the port's tracker and TCP links on the card machine.
+    Four rank threads register with the port's Tracker, wire their links
+    (default config, then rabit_wire_integrity=crc32c), each computes
+    B1's stats for its quarter of phase 13's dense16 shard on the card
+    and passes them once around the ring; then rendezvous-only rounds at
+    worlds 4 and 16.  Returns the times in seconds."""
+    import threading
+
+    # the rank threads' imports, loaded before any clock starts
+    import rabit_tpu_torch.transport  # noqa: F401
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    n = x.shape[0]
+    k, d = cent.shape
+    lock = threading.Lock()         # one card, one binding: launch in turn
+
+    def stats_bytes(rank):
+        s = local_data_slice(rank, WIRE_RANKS, n)
+        with lock:
+            st = kk.kmeans_stats_fused(cent, x[s], valid[s])
+            return st.cpu().numpy().tobytes()
+
+    log(f"[16] the wire: port Tracker({WIRE_RANKS}) on 127.0.0.1, "
+        f"{WIRE_RANKS} rank threads, B1 stats ({k}, {d + 1}) float32 of a "
+        f"quarter of {n} dense16 rows each, passed once around the ring")
+    times = {}
+    total = float(valid.sum())
+    for integrity in ("off", "crc32c"):
+        out, t = wire_round(WIRE_RANKS, integrity, stats_bytes)
+        counts = sum(np.frombuffer(o["got"], np.float32).reshape(k, d + 1)[
+            :, d].sum(dtype=np.float64) for o in out.values())
+        if counts != total:
+            raise AssertionError(f"{integrity}: the ring carried {counts} "
+                                 f"counts, the shard has {total} valid rows")
+        nbytes = len(next(iter(out.values()))["sent"])
+        log(f"    integrity {integrity}: round {t['round_s'] * 1e3:.3f} ms, "
+            f"wiring {t['wiring_s'] * 1e3:.3f} ms, ring pass of {nbytes} B "
+            f"{t['ring_s'] * 1e3:.3f} ms; every rank got ring_prev's bytes, "
+            f"counts sum to the {int(total)} valid rows")
+        times[integrity] = t
+    for world in (WIRE_RANKS, 16):
+        rounds = [wire_round(world)[1]["round_s"] for _ in range(5)]
+        log(f"    rendezvous only, world {world}: rounds "
+            + ", ".join(f"{r * 1e3:.3f}" for r in rounds)
+            + f" ms (median {statistics.median(rounds) * 1e3:.3f})")
+        times[f"rendezvous_{world}"] = rounds
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -1868,7 +2089,14 @@ def main() -> int:
     dp_launches, dp_shapes = data_parallel(torch, results, bins_t, kk, hk,
                                            rg)
     log(f"    phase 13 took {time.perf_counter() - t0:.1f} s")
-    del results, bins_t
+
+    # 16. the wire: tracker, link handshake and a ring pass on the host,
+    # run here while phase 13's dense16 shard is still on the card
+    t0 = time.perf_counter()
+    dense = results["dense"]
+    wire_phase(torch, kk, dense["x"], dense["valid"], dense["cent"])
+    log(f"    phase 16 took {time.perf_counter() - t0:.1f} s")
+    del results, bins_t, dense
     shapes = {"GBDT histograms": dp_shapes["GBDT histograms"],
               "k-means stats": dp_shapes["k-means stats"],
               "8 x 10^7": (8, 10 ** 7)}

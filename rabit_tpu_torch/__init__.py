@@ -6,8 +6,11 @@ hot k-means statistics pass and the GBDT gradient histograms run as
 hand-written CUDA kernels for the H100 (``ops/csrc``).  Entry points run
 on the card unless the caller asks for the CPU.  Ported so far: the
 world-of-one ``empty`` engine, the API, k-means
-(:mod:`rabit_tpu_torch.learn.kmeans`) and gradient-boosted trees
-(:mod:`rabit_tpu_torch.learn.boosting`).
+(:mod:`rabit_tpu_torch.learn.kmeans`), gradient-boosted trees
+(:mod:`rabit_tpu_torch.learn.boosting`), and the wire an engine will
+ride: the tracker protocol and rendezvous
+(:mod:`rabit_tpu_torch.tracker`) and the TCP links
+(:mod:`rabit_tpu_torch.transport`), byte for byte the JAX package's.
 """
 from rabit_tpu_torch.api import (
     allgather,

@@ -1,0 +1,156 @@
+"""Link-level integrity framing: ``u32 length | payload | u32 crc``.
+
+When ``rabit_wire_integrity`` is negotiated on a link, every write call
+is wrapped in one or more frames (payload capped at
+:data:`~rabit_tpu_torch.transport.base.FRAME_MAX` per frame) and the receiver
+verifies each frame's CRC trailer before a single payload byte reaches
+the engine.  The framing is a pure stream transform — frame boundaries
+follow the sender's write calls, the receiver reassembles a plain byte
+stream — so every schedule, pump and chunk budget composes unchanged.
+
+Detection, not correction: a mismatched trailer increments the
+``integrity.detected`` counter and raises
+:class:`~rabit_tpu_torch.transport.base.IntegrityError` (TCP consumes the
+stream, so there is nothing left to re-read; the pyrobust layer retries
+the whole op from pristine buffers).  The shm transport can do better —
+its ring supports re-reading an unconsumed frame — and implements the
+bounded re-read retry in the reference's ``transport/shm.py``.
+
+The checksum is the stdlib's C-accelerated CRC-32 (``zlib.crc32``) for
+both negotiated mode names (see ``INTEGRITY_MODES`` in base.py).
+PyTorch-port counterpart of :mod:`rabit_tpu.transport.framing` (its own
+copy), byte for byte the same frames.
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+from rabit_tpu_torch.transport.base import (FRAME_MAX, Events,
+                                            IntegrityError, NULL_EVENTS)
+
+HDR_FMT = "<I"
+HDR_BYTES = 4
+CRC_BYTES = 4
+
+
+def frame_crc(*views) -> int:
+    crc = 0
+    for v in views:
+        crc = zlib.crc32(v, crc)
+    return crc & 0xFFFFFFFF
+
+
+def encode_frames(bufs: list, frame_max: int = FRAME_MAX) -> list:
+    """Wrap a flat list of payload memoryviews into wire parts:
+    ``[hdr, payload..., crc] * nframes``.  Payload views are referenced,
+    never copied — only the 8 header/trailer bytes per frame are new.
+    """
+    out: list = []
+    pend: list = []
+    pend_bytes = 0
+
+    def flush() -> None:
+        nonlocal pend, pend_bytes
+        if not pend_bytes:
+            return
+        out.append(memoryview(struct.pack(HDR_FMT, pend_bytes)))
+        out.extend(pend)
+        out.append(memoryview(struct.pack(HDR_FMT, frame_crc(*pend))))
+        pend = []
+        pend_bytes = 0
+
+    for mv in bufs:
+        off = 0
+        while off < len(mv):
+            take = min(len(mv) - off, frame_max - pend_bytes)
+            pend.append(mv[off:off + take])
+            pend_bytes += take
+            off += take
+            if pend_bytes == frame_max:
+                flush()
+    flush()
+    return out
+
+
+class PlainBuffer:
+    """Verified-plaintext staging shared by the framed receive paths
+    (the TCP deframer below and the shm ring's verify-then-consume
+    reader): ``push()`` verified payload in, ``take()`` serves the
+    engine's reads in whatever sizes it asks."""
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+        self._off = 0
+
+    def push(self, data) -> None:
+        self._buf += data
+
+    def take(self, mv) -> int:
+        """Copy up to ``len(mv)`` plaintext bytes out."""
+        avail = len(self._buf) - self._off
+        n = min(avail, len(mv))
+        if n:
+            mv[:n] = memoryview(self._buf)[self._off:self._off + n]
+            self._off += n
+            if self._off == len(self._buf):
+                self._buf = bytearray()
+                self._off = 0
+        return n
+
+    def pending(self) -> bool:
+        return len(self._buf) > self._off
+
+
+class FrameDecoder:
+    """Incremental deframer for stream transports: ``feed()`` raw wire
+    bytes in whatever chunks arrive, ``take()`` verified plaintext.
+
+    A frame is verified the moment its last byte lands; corruption
+    (CRC mismatch, or a length no honest sender can produce) raises
+    :class:`IntegrityError` from ``feed`` after counting
+    ``integrity.detected`` — the engine never sees the poisoned bytes.
+    """
+
+    def __init__(self, peer: int, events: Events = NULL_EVENTS,
+                 frame_max: int = FRAME_MAX) -> None:
+        self._peer = peer
+        self._ev = events
+        self._max = frame_max
+        self._raw = bytearray()      # undecoded wire bytes
+        self._plain = PlainBuffer()  # verified payload, not yet taken
+
+    def feed(self, data) -> None:
+        self._raw += data
+        while True:
+            if len(self._raw) < HDR_BYTES:
+                return
+            (ln,) = struct.unpack_from(HDR_FMT, self._raw)
+            if not 0 < ln <= self._max:
+                self._detect(f"impossible frame length {ln}")
+            need = HDR_BYTES + ln + CRC_BYTES
+            if len(self._raw) < need:
+                return
+            payload = memoryview(self._raw)[HDR_BYTES:HDR_BYTES + ln]
+            (want,) = struct.unpack_from(HDR_FMT, self._raw,
+                                         HDR_BYTES + ln)
+            if frame_crc(payload) != want:
+                payload.release()
+                self._detect(f"frame crc mismatch (len {ln})")
+            self._plain.push(payload)
+            payload.release()
+            del self._raw[:need]
+
+    def _detect(self, what: str) -> None:
+        self._ev.counter("integrity.detected")
+        self._ev.event("integrity", phase="detected", peer=self._peer,
+                       transport="tcp", detail=what)
+        raise IntegrityError(
+            f"wire corruption from rank {self._peer} detected: {what}")
+
+    def take(self, mv) -> int:
+        """Copy up to ``len(mv)`` verified plaintext bytes out."""
+        return self._plain.take(mv)
+
+    def pending(self) -> bool:
+        return self._plain.pending()

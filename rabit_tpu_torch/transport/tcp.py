@@ -1,0 +1,235 @@
+"""``TcpTransport``: the classic TCP link behind the Link interface.
+
+This is the existing engine wire, byte-identical: the same syscalls
+(``sendall``/``sendmsg``/``recv_into``) in the same patterns the
+engine's IO helpers used inline, so a socket wrapper (the reference's
+chaos socket) interposes at exactly the same seam — the socket handed
+in here may already be wrapped — and the per-link byte stream of a
+default-config job is unchanged.
+
+With negotiated integrity framing the same socket carries
+``len|payload|crc`` frames (framing.py); corruption surfaces as
+:class:`~rabit_tpu_torch.transport.base.IntegrityError` before any poisoned
+byte reaches the engine.  PyTorch-port counterpart of
+:mod:`rabit_tpu.transport.tcp` (its own copy).
+"""
+from __future__ import annotations
+
+import socket
+from typing import Optional
+
+from rabit_tpu_torch.transport.base import (SENDMSG_MAX_PARTS,
+                                            IntegrityError, Link,
+                                            advance_iov, flatten_parts)
+from rabit_tpu_torch.transport.framing import FrameDecoder, encode_frames
+
+_RAW_READ = 65536
+
+
+class TcpLink(Link):
+    kind = "tcp"
+
+    def __init__(self, sock, peer: int, timeout: Optional[float],
+                 frames: bool = False) -> None:
+        self._sock = sock            # possibly a wrapped socket
+        self.peer = peer
+        self._timeout = timeout
+        self._frames = frames
+        self._dec = FrameDecoder(peer) if frames else None
+        self._pend: list = []        # pump-mode framed tx backlog
+        self._tmp = bytearray(_RAW_READ)
+        self._dead = False
+
+    # ------------------------------------------------------------------
+    # blocking
+    # ------------------------------------------------------------------
+    def sendall(self, data) -> None:
+        if self._frames:
+            self._sendmsg_all(encode_frames(flatten_parts([data])))
+            return
+        while True:
+            try:
+                self._sock.sendall(data)
+                return
+            except InterruptedError:
+                # EINTR only ever surfaces with zero bytes moved
+                # (sendall retries internally once transfer starts,
+                # PEP 475), so reissuing the whole buffer is safe.
+                continue
+            except OSError as e:
+                self._dead = True
+                self._fail(f"send to rank {self.peer} failed: {e}", e)
+
+    def sendv(self, parts) -> None:
+        bufs = flatten_parts(parts)
+        if self._frames:
+            bufs = encode_frames(bufs)
+        self._sendmsg_all(bufs)
+
+    def _sendmsg_all(self, bufs: list) -> None:
+        """Vectored blocking send: coalesce buffers into as few
+        syscalls as ``sendmsg`` allows — the byte stream is identical
+        to sequential ``sendall`` calls."""
+        try:
+            while bufs:
+                try:
+                    n = self._sock.sendmsg(bufs[:SENDMSG_MAX_PARTS])
+                except InterruptedError:
+                    continue  # EINTR: nothing consumed, reissue
+                advance_iov(bufs, n)
+        except OSError as e:
+            self._dead = True
+            self._fail(f"send to rank {self.peer} failed: {e}", e)
+
+    def recv_exact(self, nbytes: int, into=None):
+        buf = into if into is not None else memoryview(bytearray(nbytes))
+        if self._frames:
+            return self._recv_exact_framed(buf, nbytes)
+        got = 0
+        try:
+            while got < nbytes:
+                try:
+                    n = self._sock.recv_into(buf[got:nbytes], nbytes - got)
+                except InterruptedError:
+                    continue  # EINTR: not a peer failure, just retry
+                if n == 0:
+                    self._dead = True
+                    self._fail(f"rank {self.peer} closed the link")
+                got += n
+        except OSError as e:
+            self._dead = True
+            self._fail(f"recv from rank {self.peer} failed: {e}", e)
+        return buf
+
+    def _recv_exact_framed(self, buf, nbytes: int):
+        got = self._dec.take(buf[:nbytes])
+        while got < nbytes:
+            try:
+                try:
+                    n = self._sock.recv_into(self._tmp, _RAW_READ)
+                except InterruptedError:
+                    continue
+            except OSError as e:
+                self._dead = True
+                self._fail(f"recv from rank {self.peer} failed: {e}", e)
+            if n == 0:
+                self._dead = True
+                self._fail(f"rank {self.peer} closed the link")
+            self._feed(memoryview(self._tmp)[:n])
+            got += self._dec.take(buf[got:nbytes])
+        return buf
+
+    def _feed(self, raw) -> None:
+        try:
+            self._dec.feed(raw)
+        except IntegrityError as e:
+            e.link = self  # attribution for the engine's failover hook
+            raise
+
+    # ------------------------------------------------------------------
+    # pump
+    # ------------------------------------------------------------------
+    def pump_begin(self) -> None:
+        try:
+            self._sock.setblocking(False)
+        except OSError as e:
+            # A link already reset by a previous phase of the same op
+            # must surface as LinkError (-> recovery), never EBADF.
+            self._dead = True
+            self._fail(f"link to rank {self.peer} is dead: {e}", e)
+
+    def pump_end(self) -> None:
+        # settimeout (not setblocking) — setblocking(True) would clear
+        # the link IO timeout set at wiring.  Tolerant of a dead fd:
+        # restoring state on a reset link must not mask the LinkError
+        # in flight with EBADF.
+        try:
+            self._sock.settimeout(self._timeout)
+        except OSError:
+            pass
+        if self._pend:
+            self._sendmsg_all(self._pend)
+            self._pend = []
+
+    def pump_abort(self) -> None:
+        self._pend = []
+        try:
+            self._sock.settimeout(self._timeout)
+        except OSError:
+            pass
+
+    def poll_sendv(self, bufs: list) -> bool:
+        if self._frames:
+            if not self._pend and bufs:
+                # Claim payload one frame batch at a time; the frame
+                # references the caller's buffers, so claim == consume.
+                self._pend = encode_frames(bufs)
+                del bufs[:]
+            if not self._pend:
+                return False
+            send_bufs = self._pend
+        else:
+            if not bufs:
+                return False
+            send_bufs = bufs
+        try:
+            n = self._sock.sendmsg(send_bufs[:SENDMSG_MAX_PARTS])
+        except (BlockingIOError, InterruptedError):
+            return False
+        except OSError as e:
+            self._dead = True
+            self._fail(f"send to rank {self.peer} failed: {e}", e)
+        advance_iov(send_bufs, n)
+        return n > 0
+
+    def poll_recv(self, mv) -> int:
+        self.wire_progress = False
+        if self._frames:
+            n = self._dec.take(mv)
+            if n:
+                self.wire_progress = True
+                return n
+        try:
+            if self._frames:
+                m = self._sock.recv_into(self._tmp, _RAW_READ)
+            else:
+                m = self._sock.recv_into(mv, len(mv))
+        except (BlockingIOError, InterruptedError):
+            return 0
+        except OSError as e:
+            self._dead = True
+            self._fail(f"recv from rank {self.peer} failed: {e}", e)
+        if m == 0:
+            self._dead = True
+            self._fail(f"rank {self.peer} closed the link")
+        self.wire_progress = True
+        if self._frames:
+            self._feed(memoryview(self._tmp)[:m])
+            return self._dec.take(mv)
+        return m
+
+    def rx_pending(self) -> bool:
+        return self._dec.pending() if self._dec is not None else False
+
+    def tx_pending(self) -> bool:
+        return bool(self._pend)
+
+    def fileno(self) -> int:
+        return self._sock.fileno()
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+    def healthy(self) -> bool:
+        if self._dead:
+            return False
+        try:
+            return self._sock.fileno() >= 0
+        except OSError:
+            return False
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass

@@ -256,7 +256,14 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
                 "rabit_tpu_torch.ops.ring_allreduce",
                 "rabit_tpu_torch.tools.ici_bench",
                 "rabit_tpu_torch.tools.kernel_experiments",
-                "rabit_tpu_torch.tools.stats_ab"):
+                "rabit_tpu_torch.tools.stats_ab",
+                "rabit_tpu_torch.tracker.protocol",
+                "rabit_tpu_torch.tracker.tracker",
+                "rabit_tpu_torch.transport.base",
+                "rabit_tpu_torch.transport.framing",
+                "rabit_tpu_torch.transport.tcp",
+                "rabit_tpu_torch.transport.factory",
+                "rabit_tpu_torch.sched.topo", "rabit_tpu_torch.sched.tuner"):
         assert f"'{mod}'" in proc.stdout
 
 
