@@ -99,7 +99,21 @@ Phases, each raising on failure (the script then exits non-zero):
     every reply is held against ``tree_neighbors``, ``ring_neighbors``
     and ``extra_link_peers``, every thread and the tracker's ``run()``
     must end within 120 s; then rendezvous-only rounds at worlds 4 and
-    16, five each.  It prints the round, wiring and ring-pass times.
+    16, five each.  It prints the round, wiring and ring-pass times;
+17. (last) k-means and GBDT at world 3 over the port's
+    ``PySocketEngine``: the port's ``Tracker(3)`` and three rank
+    processes sharing the card (this script with ``--world3-rank``).
+    ``kmeans.run`` on phase 5's rows split in three, each third on the
+    dense16 tier (B1), 3 iterations, against a world-1 oracle that runs
+    B1's plain version on all the rows with no wire: counts exact every
+    iteration, centroids within the float32 sum bar and bit-identical on
+    the ranks; then ``boosting.train`` on phase 10's rows split in three,
+    2 rounds, with the float32 kernel against the plain path (top three
+    levels identical, log-loss within 1e-4) and with the bfloat16
+    kernel, B3's launches per rank against the level chunks.  It prints
+    each rank's time split (staging or binning, kernel, wire, rest), the
+    schedule the stats rode and the allreduce times at the stats' and
+    the largest level's sizes.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -197,19 +211,22 @@ def clustered_ell(torch, n, d, nnz, k, seed):
     return cent, idx, val, valid
 
 
-def sparse_clusters(n, d, nnz, k, seed, init_seed=0):
+def sparse_clusters(n, d, nnz, k, seed, init_seed=0, picks=None):
     """A SparseMat of n clustered rows for kmeans.run: each cluster has
     16 signature features; a row puts 3/4 of its slots there and the
     rest on random features.  The rows run() seeds its centroids from
-    (the same numpy draws as init_centroids) are given one cluster each,
-    so no cluster starts with two centroids and no row sits on a tie."""
+    (the same numpy draws as init_centroids at world 1, or ``picks``,
+    the global rows it seeds them from at a larger world) are given one
+    cluster each, so no cluster starts with two centroids and no row
+    sits on a tie."""
     from rabit_tpu_torch.learn.data import SparseMat
 
     rng = np.random.default_rng(seed)
     sig = np.stack([rng.choice(d, 16, replace=False) for _ in range(k)])
     label = rng.integers(0, k, n)
-    draw = np.random.default_rng(init_seed)
-    picks = [int(draw.integers(n)) for _ in range(k)]
+    if picks is None:
+        draw = np.random.default_rng(init_seed)
+        picks = [int(draw.integers(n)) for _ in range(k)]
     assert len(set(picks)) == k, "init rows collide; pick another seed"
     label[picks] = np.arange(k)
     n_sig = nnz * 3 // 4
@@ -1684,6 +1701,453 @@ def wire_phase(torch, kk, x, valid, cent):
     return times
 
 
+# ------------------------------------------------------------- world 3
+W3_RANKS = 3                      # rank processes of phase 17
+W3_TIMEOUT = 400.0                # seconds each rank process may take
+W3_KM_ITERS = 3                   # k-means iterations at world 3
+W3_GB_ROUNDS = 2                  # boosting rounds at world 3
+W3_RUNS = ("kmeans", "f32 kernel", "plain", "bf16 kernel")
+W3_GB_KW = {"f32 kernel": dict(compute_dtype="float32"),
+            "plain": dict(use_kernel=False), "bf16 kernel": {}}
+
+
+def world3_picks(n, k, world):
+    """The global rows ``init_centroids`` seeds each centroid from when n
+    rows are split into ``world`` contiguous shards: each rank draws k
+    rows of its own shard and then k roots from one generator of seed 0,
+    and centroid i is root i's row i.  The roots must agree across the
+    shards' sizes (they differ by a row), or the ranks' broadcasts would
+    not meet."""
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    rows, roots = [], []
+    for r in range(world):
+        size = local_data_slice(r, world, n).stop - local_data_slice(
+            r, world, n).start
+        draw = np.random.default_rng(0)
+        rows.append([int(draw.integers(size)) for _ in range(k)])
+        roots.append([int(draw.integers(world)) for _ in range(k)])
+    if any(rt != roots[0] for rt in roots):
+        raise AssertionError("init_centroids' roots differ between shards")
+    return [local_data_slice(roots[0][i], world, n).start
+            + rows[roots[0][i]][i] for i in range(k)]
+
+
+def _shard_rows(data, s):
+    """Rows ``s`` of a SparseMat of rows with equal slot counts."""
+    from rabit_tpu_torch.learn.data import SparseMat
+
+    nnz = int(data.indptr[1] - data.indptr[0])
+    return SparseMat(indptr=np.arange(s.stop - s.start + 1,
+                                      dtype=np.int64) * nnz,
+                     findex=data.findex[s.start * nnz:s.stop * nnz],
+                     fvalue=data.fvalue[s.start * nnz:s.stop * nnz],
+                     labels=data.labels[s], feat_dim=data.feat_dim)
+
+
+class _Clock:
+    """Host seconds by part of one rank's run, and each wire op."""
+
+    def __init__(self):
+        self.parts = dict(staging=0.0, kernel=0.0, wire=0.0)
+        self.ops = []      # (bytes, wire seconds, schedule, fill seconds)
+
+    def timed(self, part, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.parts[part] += time.perf_counter() - t0
+        return call
+
+    def wire(self, eng):
+        """Time the live engine's allreduce and broadcast; the lazy fill
+        of an allreduce is counted as kernel time, not wire."""
+        real_ar, real_bc = eng.allreduce, eng.broadcast
+
+        def allreduce(buf, op, prepare_fun=None):
+            fill = [0.0]
+
+            def prep():
+                t = time.perf_counter()
+                prepare_fun()
+                fill[0] = time.perf_counter() - t
+            t0 = time.perf_counter()
+            out = real_ar(buf, op, prep if prepare_fun else None)
+            dt = time.perf_counter() - t0 - fill[0]
+            self.parts["kernel"] += fill[0]
+            self.parts["wire"] += dt
+            self.ops.append((int(buf.nbytes), dt, eng._op_sched, fill[0]))
+            return out
+        eng.allreduce = allreduce
+        eng.broadcast = self.timed("wire", real_bc)
+
+    def split(self, wall):
+        return dict(self.parts, wall=wall,
+                    rest=wall - sum(self.parts.values()))
+
+
+def _device_timed(torch, fn, events):
+    """``fn`` with CUDA events recorded around each call into
+    ``events``."""
+    def call(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = fn(*a, **k)
+        ev[1].record()
+        events.append(ev)
+        return res
+    return call
+
+
+def world3_rank(task, ports):
+    """One rank process of phase 17 (``chip_smoke.py --world3-rank TASK
+    PORT...``): k-means on its third of phase 5's dense16 rows under the
+    first tracker, then boosting.train on its third of phase 10's rows
+    under one tracker each for the float32 kernel, the plain path and the
+    bfloat16 kernel, all through the port's PySocketEngine.  Prints one
+    JSON line: results, kernel launches and the time split."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the world-3 ranks run on the card")
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import boosting as gb
+    from rabit_tpu_torch.learn import histogram as bh
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import histogram_kernel as hk
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def init(port):
+        rabit_tpu_torch.init(rabit_engine="pysocket",
+                             rabit_tracker_uri="127.0.0.1",
+                             rabit_tracker_port=port, rabit_task_id=task,
+                             rabit_world_size=W3_RANKS,
+                             rabit_timeout_sec=W3_TIMEOUT)
+        clock = _Clock()
+        clock.wire(engine_mod.get_engine())
+        return clock, rabit_tpu_torch.get_rank()
+
+    def reset():
+        for counts in (kk.LAUNCHES, hk.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    out = {}
+    # (a) k-means, dense16 tier
+    clock, rank = init(ports[0])
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                           picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+    shard = _shard_rows(data, local_data_slice(rank, W3_RANKS, MAIN_ROWS))
+    del data
+    shard.to_ell = clock.timed("staging", shard.to_ell)
+    real = dict(prepare_shard=km.prepare_shard, b1=km.kmeans_stats_fused)
+    tiers, b1_events = [], []
+    km.kmeans_stats_fused = _device_timed(torch, real["b1"], b1_events)
+
+    def dense16(*a, **k):
+        # A third of the rows (1.4M x 257 x 4 B) fits the float32 dense
+        # tier's 2 GiB budget, where run() would stage it for plain
+        # products; budget 0 takes the next tier, dense16 (B1), as the
+        # CPU tests force tiers.
+        staged = real["prepare_shard"](*a, budget=0, **k)
+        tiers.append(staged[0])
+        return staged
+    km.prepare_shard = clock.timed("staging", dense16)
+    counts = []
+    eng = engine_mod.get_engine()
+    real_ar = eng.allreduce
+
+    def stats_allreduce(buf, op, prepare_fun=None):
+        res = real_ar(buf, op, prepare_fun)
+        if res.ndim == 2:
+            counts.append(res[:, -1].tolist())
+        return res
+    eng.allreduce = stats_allreduce
+    reset()
+    t0 = time.perf_counter()
+    model = km.run(shard, K, W3_KM_ITERS, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    km.prepare_shard = real["prepare_shard"]
+    km.kmeans_stats_fused = real["b1"]
+    out["kmeans"] = dict(rank=rank, centroids=model.centroids.tolist(),
+                         counts=counts, launches=dict(kk.LAUNCHES),
+                         tiers=tiers, b1_ms=[a.elapsed_time(b)
+                                             for a, b in b1_events],
+                         split=clock.split(wall), ops=clock.ops)
+    rabit_tpu_torch.finalize()
+    del shard
+    # (b) GBDT, three ways
+    x_all, y_all = gbdt_data(GBDT_ROWS, GBDT_FEATURES, seed=11)
+    chunk = hk.max_channels(GBDT_NBIN + 1, GBDT_FEATURES) // 2
+    real.update(hist=hk.hist_fused_multi, cuts=bh.quantile_cuts,
+                apply=gb.apply_cuts)
+    for label, port in zip(W3_RUNS[1:], ports[1:]):
+        clock, rank = init(port)
+        # each tracker hands out its own ranks: the shard follows this one
+        s = local_data_slice(rank, W3_RANKS, GBDT_ROWS)
+        x, y = np.ascontiguousarray(x_all[s]), np.ascontiguousarray(y_all[s])
+        events, bins = [], []
+
+        def keep_bins(*a, **k):
+            bins.append(real["apply"](*a, **k))
+            return bins[-1]
+        hk.hist_fused_multi = _device_timed(torch, real["hist"], events)
+        bh.quantile_cuts = clock.timed("staging", real["cuts"])
+        gb.apply_cuts = clock.timed("staging", keep_bins)
+        reset()
+        t0 = time.perf_counter()
+        try:
+            model = gb.train(x, y, num_round=W3_GB_ROUNDS,
+                             max_depth=GBDT_DEPTH, nbin=GBDT_NBIN,
+                             **W3_GB_KW[label])
+            torch.cuda.synchronize()
+        finally:
+            hk.hist_fused_multi = real["hist"]
+            bh.quantile_cuts = real["cuts"]
+            gb.apply_cuts = real["apply"]
+        wall = time.perf_counter() - t0
+        clock.parts["kernel"] = sum(a.elapsed_time(b)
+                                    for a, b in events) / 1e3
+        losses, acc, _pred = round_losses(model, bins[0], y)
+        out[label] = dict(
+            rank=rank, rows=len(y), loss_sums=[v * len(y) for v in losses],
+            hits=acc * len(y), top=top_levels(model.trees[0], 3),
+            trees=[[dataclasses.astuple(n) for n in t] for t in model.trees],
+            leaves_finite=bool(np.isfinite(
+                [n.value for t in model.trees for n in t]).all()),
+            launches=dict(hk.LAUNCHES), other=dict(kk.LAUNCHES),
+            level_chunks=sum(level_chunks(t, GBDT_DEPTH, chunk)
+                             for t in model.trees),
+            split=clock.split(wall), ops=clock.ops)
+        rabit_tpu_torch.finalize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _read_back(f):
+    f.seek(0)
+    return f.read()
+
+
+def _ms(seconds):
+    return f"{seconds * 1e3:.3f}"
+
+
+def world3_phase(torch, km, kk):
+    """Phase 17: k-means and GBDT at world 3 over the port's
+    PySocketEngine, three rank processes sharing the card (see
+    ``world3_rank``), against a world-1 oracle for k-means and against
+    the plain path for GBDT.  Returns each kernel's launches by rank."""
+    from rabit_tpu_torch.tracker.tracker import Tracker
+
+    log(f"[17] world {W3_RANKS} over the port's PySocketEngine: {W3_RANKS} "
+        f"rank processes on one card; k-means dense16 {MAIN_ROWS} x 256 "
+        f"k={K}, {W3_KM_ITERS} iterations; boosting.train {GBDT_ROWS} x "
+        f"{GBDT_FEATURES}, {GBDT_NBIN} bins, depth {GBDT_DEPTH}, "
+        f"{W3_GB_ROUNDS} rounds, three ways")
+    t0 = time.perf_counter()
+    trackers = [Tracker(W3_RANKS, host="127.0.0.1", port=0) for _ in W3_RUNS]
+    procs = []
+    # the ranks' output goes to files: a rank blocked on a full pipe in
+    # mid-collective would stall the ranks waiting on it
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(W3_RANKS)]
+    try:
+        for t in trackers:
+            t.start()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("RABIT_")}
+        env["PYTHONPATH"] = ROOT
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--world3-rank",
+             str(i)] + [str(t.port) for t in trackers], cwd=ROOT, env=env,
+            stdout=logs[i][0], stderr=logs[i][1]) for i in range(W3_RANKS)]
+        # the oracle, while the ranks run: world 1 on the whole data, the
+        # plain device loop from the centroids init_centroids seeds at
+        # world 3 (the same rows, learn/kmeans.py init_centroids), with
+        # no wire
+        picks = world3_picks(MAIN_ROWS, K, W3_RANKS)
+        data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7, picks=picks)
+        init = np.zeros((K, 256), np.float32)
+        for i, row in enumerate(picks):
+            fi, fv = data.row(row)
+            np.add.at(init, (i, fi), fv)
+        model = km.KMeansModel(init)
+        model.normalize()
+        idx, val, _lab, valid = data.to_ell(pad_index=256, row_block=1024)
+        del data
+        shard = km.prepare_shard(idx, val, valid, 256, 1024, budget=0,
+                                 compute_dtype="bfloat16")
+        del idx, val, valid
+        if shard[0] != "dense16":
+            raise AssertionError(f"oracle: staged {shard[0]}, not dense16")
+        x16, v16 = shard[2]
+        want_counts = []
+        for _ in range(W3_KM_ITERS):
+            # B1's plain version on all the rows, then run()'s own host
+            # update (learn/kmeans.py run)
+            cn = kk._normalized(torch.from_numpy(model.centroids).cuda(),
+                                torch.bfloat16)
+            stats = kk._stats_plain(cn, x16, v16).cpu().numpy()
+            counts = stats[:, -1:]
+            want_counts.append(counts[:, 0])
+            model.centroids = (stats[:, :-1] / counts).astype(np.float32)
+            model.normalize()
+        want_cent = model.centroids
+        del shard, x16, v16
+        torch.cuda.empty_cache()
+        t_oracle = time.perf_counter() - t0
+        # a rank that fails fails the phase at once: the others would
+        # wait on it until their link or tracker timeouts
+        while any(p.poll() is None for p in procs):
+            for i, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"world-3 rank process {i} failed ({p.returncode}):"
+                        f"\n{_read_back(logs[i][1])[-4000:]}")
+            if time.perf_counter() - t0 > W3_TIMEOUT:
+                raise AssertionError(f"the world-3 rank processes did not "
+                                     f"end within {W3_TIMEOUT:g} s")
+            time.sleep(0.2)
+        results = []
+        for i, p in enumerate(procs):
+            stdout, stderr = map(_read_back, logs[i])
+            if p.returncode != 0:
+                raise AssertionError(f"world-3 rank process {i} failed "
+                                     f"({p.returncode}):\n{stderr[-4000:]}")
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+        for t in trackers:
+            t.join(30)
+            if t._thread.is_alive():
+                raise AssertionError("a phase-17 tracker's run() did not "
+                                     "return after every shutdown")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for t in trackers:
+            t.stop()
+        for f in (f for pair in logs for f in pair):
+            f.close()
+    wall = time.perf_counter() - t0
+    by_rank = {r["kmeans"]["rank"]: r for r in results}
+    if sorted(by_rank) != list(range(W3_RANKS)):
+        raise AssertionError(f"world-3 ranks {sorted(by_rank)}")
+    # (a) k-means against the oracle
+    km3 = [by_rank[r]["kmeans"] for r in range(W3_RANKS)]
+    cents = [np.asarray(k["centroids"], np.float32) for k in km3]
+    if any(not np.array_equal(c, cents[0]) for c in cents):
+        raise AssertionError("k-means: the ranks' final centroids differ")
+    for k in km3:
+        if k["tiers"] != ["dense16"]:
+            raise AssertionError(f"k-means rank {k['rank']}: staged "
+                                 f"{k['tiers']}, not the dense16 tier")
+        got = np.asarray(k["counts"])
+        if got.shape != (W3_KM_ITERS, K) or not np.array_equal(
+                got, np.asarray(want_counts)):
+            raise AssertionError(f"k-means rank {k['rank']}: counts by "
+                                 f"iteration {got.tolist()} vs the oracle's "
+                                 f"{np.asarray(want_counts).tolist()}")
+        if k["launches"]["kmeans_stats_dense"] < W3_KM_ITERS or \
+                k["launches"]["kmeans_stats_ell"]:
+            raise AssertionError(f"k-means rank {k['rank']}: launches "
+                                 f"{k['launches']}")
+    err = float(np.abs(cents[0] - want_cent).max())
+    if not (np.isfinite(cents[0]).all() and cents[0].shape == (K, 256)
+            and np.allclose(cents[0], want_cent, rtol=SUM_RTOL,
+                            atol=SUM_ATOL)):
+        raise AssertionError(f"k-means world 3: centroids off the world-1 "
+                             f"oracle by {err}")
+    stats_bytes = K * 257 * 4
+    scheds = {op[2] for k in km3 for op in k["ops"] if op[0] == stats_bytes}
+    stat_ms = [statistics.median(op[1] for op in k["ops"]
+                                 if op[0] == stats_bytes) for k in km3]
+    fill_ms = [statistics.median(op[3] for op in k["ops"]
+                                 if op[0] == stats_bytes) for k in km3]
+    b1_ms = [statistics.median(k["b1_ms"]) for k in km3]
+    log(f"    k-means: counts of all {W3_KM_ITERS} iterations equal the "
+        f"oracle's, centroids bit-identical on the {W3_RANKS} ranks and "
+        f"within {err:.3g} of the world-1 plain loop; B1 launches by rank "
+        f"{[k['launches']['kmeans_stats_dense'] for k in km3]}; the "
+        f"({K}, 257) float32 stats ({stats_bytes} B) rode {sorted(scheds)}; "
+        f"medians by rank over the iterations: allreduce "
+        f"{[_ms(t) for t in stat_ms]} ms, its lazy fill (B1 and the "
+        f"stats' copy to the host) {[_ms(t) for t in fill_ms]} ms, B1 "
+        f"alone (CUDA events) {[_ms(t / 1e3) for t in b1_ms]} ms")
+    for k in km3:
+        sp = k["split"]
+        log(f"    k-means rank {k['rank']}: wall {sp['wall']:.3f} s = "
+            f"staging {sp['staging']:.3f} + kernel (B1 and the stats' "
+            f"copy to the host) {sp['kernel']:.3f} + wire {sp['wire']:.3f} "
+            f"+ rest {sp['rest']:.3f} s")
+    # (b) GBDT: the float32 kernel against the plain path, then bf16
+    gb3 = {label: [by_rank[r][label] for r in range(W3_RANKS)]
+           for label in W3_RUNS[1:]}
+    summary = {}
+    for label, ranks in gb3.items():
+        if any(g["trees"] != ranks[0]["trees"] for g in ranks):
+            raise AssertionError(f"GBDT {label}: the ranks' trees differ")
+        n = sum(g["rows"] for g in ranks)
+        losses = [sum(g["loss_sums"][i] for g in ranks) / n
+                  for i in range(W3_GB_ROUNDS)]
+        acc = sum(g["hits"] for g in ranks) / n
+        for g in ranks:
+            want = 0 if label == "plain" else g["level_chunks"]
+            got = g["launches"]["gbdt_hist"]
+            if got != want or (label != "plain" and got == 0) or \
+                    any(g["other"].values()):
+                raise AssertionError(f"GBDT {label} rank {g['rank']}: "
+                                     f"{got} histogram launches for {want} "
+                                     f"level chunks, k-means {g['other']}")
+        summary[label] = dict(losses=losses, acc=acc, top=ranks[0]["top"])
+        hist_ops = [max(g["ops"]) for g in ranks]
+        log(f"    {label}: log-loss by round {[round(v, 6) for v in losses]}"
+            f", accuracy {acc:.4f}, B3 launches by rank "
+            f"{[g['launches']['gbdt_hist'] for g in ranks]}; largest level "
+            f"histogram {hist_ops[0][0]} B rode {hist_ops[0][2]}, "
+            f"allreduce by rank {[_ms(o[1]) for o in hist_ops]} ms")
+        for g in ranks:
+            sp = g["split"]
+            log(f"      rank {g['rank']}: wall {sp['wall']:.3f} s = binning "
+                f"{sp['staging']:.3f} + kernel (B3, device time) "
+                f"{sp['kernel']:.3f} + wire {sp['wire']:.3f} + rest "
+                f"{sp['rest']:.3f} s")
+    k32, plain, k16 = (summary[x] for x in W3_RUNS[1:])
+    if [tuple(t) for t in k32["top"]] != [tuple(t) for t in plain["top"]]:
+        raise AssertionError(f"GBDT world 3: first tree's top levels "
+                             f"differ:\n{k32['top']}\n{plain['top']}")
+    rel = max(abs(a - b) / b for a, b in zip(k32["losses"], plain["losses"]))
+    if rel > 1e-4:
+        raise AssertionError(f"GBDT world 3: float32 kernel log-loss off "
+                             f"the plain path by {rel:.3g} relative")
+    if not all(g["leaves_finite"] for g in gb3["bf16 kernel"]) or any(
+            b >= a for a, b in zip(k16["losses"], k16["losses"][1:])) or \
+            abs(k16["acc"] - k32["acc"]) > 0.005:
+        raise AssertionError(f"GBDT world 3 bf16 kernel: losses "
+                             f"{k16['losses']}, accuracy {k16['acc']} vs "
+                             f"{k32['acc']}")
+    log(f"    GBDT: f32 kernel vs plain top 3 levels identical, log-loss "
+        f"within {rel:.3g} relative; bf16 finite, falling, accuracy "
+        f"{k16['acc']:.4f} vs f32 {k32['acc']:.4f}")
+    log(f"    phase 17 wall {wall:.1f} s (the oracle {t_oracle:.1f} s of it, "
+        f"beside the ranks)")
+    return dict(
+        kmeans_stats_dense=[k["launches"]["kmeans_stats_dense"]
+                            for k in km3],
+        gbdt_hist={label: [g["launches"]["gbdt_hist"] for g in ranks]
+                   for label, ranks in gb3.items() if label != "plain"})
+
+
 def main() -> int:
     import torch
 
@@ -2124,6 +2588,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lines += variant_study(torch, kk)
     log(f"    phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    # 17. k-means and GBDT at world 3 over the pysocket engine
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w3 = world3_phase(torch, km, kk)
+    for line in lines:
+        if line["name"] in w3:
+            line["world3_launches_by_rank"] = w3[line["name"]]
+    log(f"    phase 17 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -2135,4 +2608,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world3-rank"]:
+        sys.exit(world3_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     sys.exit(main())

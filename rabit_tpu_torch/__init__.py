@@ -5,12 +5,14 @@ It imports ``torch`` and ``numpy`` and nothing of the JAX package; the
 hot k-means statistics pass and the GBDT gradient histograms run as
 hand-written CUDA kernels for the H100 (``ops/csrc``).  Entry points run
 on the card unless the caller asks for the CPU.  Ported so far: the
-world-of-one ``empty`` engine, the API, k-means
+world-of-one ``empty`` engine and the ``pysocket`` engine's synchronous
+core (:mod:`rabit_tpu_torch.engine.pysocket`), the API, k-means
 (:mod:`rabit_tpu_torch.learn.kmeans`), gradient-boosted trees
-(:mod:`rabit_tpu_torch.learn.boosting`), and the wire an engine will
-ride: the tracker protocol and rendezvous
-(:mod:`rabit_tpu_torch.tracker`) and the TCP links
-(:mod:`rabit_tpu_torch.transport`), byte for byte the JAX package's.
+(:mod:`rabit_tpu_torch.learn.boosting`), and the wire the engine rides:
+the tracker protocol and rendezvous (:mod:`rabit_tpu_torch.tracker`),
+the TCP links and their pumps (:mod:`rabit_tpu_torch.transport`) and
+the tree, ring and halving schedules (:mod:`rabit_tpu_torch.sched`),
+byte for byte the JAX package's.
 """
 from rabit_tpu_torch.api import (
     allgather,

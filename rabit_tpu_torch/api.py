@@ -25,8 +25,8 @@ def init(args: Optional[list[str]] = None, **params: Any) -> None:
 
     ``args`` accepts ``name=value`` strings; keyword params win on
     conflict.  Environment variables prefixed ``RABIT_`` are read as
-    defaults.  ``rabit_engine`` names the engine (only ``empty`` is
-    ported).
+    defaults.  ``rabit_engine`` names the engine (``empty`` or
+    ``pysocket`` are ported).
     """
     merged: dict[str, Any] = {}
     for key, val in os.environ.items():

@@ -1,9 +1,13 @@
 """Engine layer (counterpart of :mod:`rabit_tpu.engine`).
 
-Only the ``empty`` engine (world of one) is ported so far.  Every other
-engine name, and the tracker-URI autodetect that would pick a networked
-engine, raises :class:`NotImplementedError` rather than running on a
-different engine than the one asked for.
+Ported so far: ``empty`` (world of one) and ``pysocket`` (pure-Python
+TCP, non-fault-tolerant).  Every other engine name raises
+:class:`NotImplementedError` rather than running on a different engine
+than the one asked for.  So does the tracker-URI autodetect: the
+reference picks a fault-tolerant engine there (native, else pyrobust),
+so that fault tolerance never silently disappears, and the port will
+not quietly run ``pysocket`` in its place.  Until pyrobust lands
+(ROADMAP A4), callers name ``rabit_engine=pysocket``.
 """
 from __future__ import annotations
 
@@ -25,12 +29,17 @@ def _make_engine(name: str) -> Engine:
         from rabit_tpu_torch.engine.empty import EmptyEngine
 
         return EmptyEngine()
+    if name == "pysocket":
+        from rabit_tpu_torch.engine.pysocket import PySocketEngine
+
+        return PySocketEngine()
     raise _not_ported(name)
 
 
 def _autodetect(params: dict) -> str:
-    """No engine named: a configured tracker would select a networked
-    engine (not ported yet), otherwise ``empty``."""
+    """No engine named: a configured tracker selects a fault-tolerant
+    engine in the reference (not ported yet, ROADMAP A4), otherwise
+    ``empty``."""
     if "rabit_tracker_uri" in params or "RABIT_TRACKER_URI" in os.environ:
         raise _not_ported("pyrobust")
     return "empty"

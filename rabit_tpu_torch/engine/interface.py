@@ -1,8 +1,8 @@
 """Abstract engine interface.
 
 PyTorch-port counterpart of :class:`rabit_tpu.engine.interface.Engine`,
-carried as far as the empty engine and :mod:`rabit_tpu_torch.api` use
-it.  Buffers are numpy arrays or ``torch.Tensor``; checkpoint payloads
+carried as far as the empty and pysocket engines and
+:mod:`rabit_tpu_torch.api` use it.  Buffers are numpy arrays or ``torch.Tensor``; checkpoint payloads
 are ``bytes`` ((de)serialization happens in the API layer).
 """
 from __future__ import annotations

@@ -122,16 +122,20 @@ class TransportConfig:
         return self.integrity != "off"
 
 
-def setup_stream_socket(sock: socket.socket,
-                        timeout: Optional[float]) -> socket.socket:
+def setup_stream_socket(sock: socket.socket, timeout: Optional[float],
+                        sock_buf: int) -> socket.socket:
     """The ONE socket-setup helper every TCP link creation path runs,
-    so the latency options can never silently miss a link: TCP_NODELAY
-    (small consensus words must not wait on Nagle) and the engine's
-    link IO timeout.  (The reference also sizes the socket buffers from
-    ``rabit_sock_buf``; that knob waits for its engine, ROADMAP A2.)
+    so ``rabit_sock_buf`` and the latency options can never silently
+    miss a link: TCP_NODELAY (small consensus words must not wait on
+    Nagle), the engine's link IO timeout, and SO_SNDBUF/SO_RCVBUF when
+    ``rabit_sock_buf`` asks (both directions; the kernel doubles the
+    value for bookkeeping).
     """
     sock.settimeout(timeout)
     sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    if sock_buf > 0:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, sock_buf)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, sock_buf)
     return sock
 
 

@@ -22,9 +22,10 @@ engine-side); the factory turns each established socket into a
   ``shm:<bytes>`` meets an offer without it here, so that link is TCP
   on both ends, exactly as the reference's own negotiation decides.
 
-The reference factory's engine-side knobs (socket buffers, a socket
-wrapper, telemetry, the shm failover bookkeeping) come with the engine
-that sets them (ROADMAP A2, A8).
+Of the reference factory's engine-side knobs the port takes
+``sock_buf`` (``rabit_sock_buf``, the socket buffer sizes of every
+link); a socket wrapper (the chaos socket), telemetry events, the
+topology hook and the shm failover bookkeeping wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -59,13 +60,18 @@ def _parse_offer(raw: str) -> dict:
 
 class LinkFactory:
     """Link builder for one rank: ``rank`` is the one its rendezvous
-    reply gave it, sent in every hello."""
+    reply gave it, sent in every hello.  The engine builds its factory
+    once registration has returned that rank (the reference builds it
+    before, and tells it the rank through ``set_topology``).
+    ``sock_buf`` sizes SO_SNDBUF/SO_RCVBUF on every link (0 keeps the
+    kernel default)."""
 
     def __init__(self, cfg: TransportConfig, rank: int, *,
-                 timeout: Optional[float]) -> None:
+                 timeout: Optional[float], sock_buf: int = 0) -> None:
         self.cfg = cfg
         self.rank = int(rank)
         self.timeout = timeout
+        self.sock_buf = sock_buf
 
     # ------------------------------------------------------------------
     # feature offer
@@ -86,7 +92,7 @@ class LinkFactory:
     def dial(self, sock: socket.socket, peer: int) -> Link:
         """Upgrade an engine-dialed socket into a Link (dialer side of
         the link handshake)."""
-        setup_stream_socket(sock, self.timeout)
+        setup_stream_socket(sock, self.timeout, self.sock_buf)
         feats = self._offer(peer)
         if not feats:
             # Classic bytes: identical to every pre-transport release.
@@ -108,7 +114,7 @@ class LinkFactory:
 
     def accept(self, sock: socket.socket) -> tuple[Link, int]:
         """Acceptor side; returns ``(link, peer_rank)``."""
-        setup_stream_socket(sock, self.timeout)
+        setup_stream_socket(sock, self.timeout, self.sock_buf)
         magic = P.recv_u32(sock)
         if magic == P.MAGIC:
             peer = P.recv_u32(sock)

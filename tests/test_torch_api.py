@@ -129,7 +129,7 @@ def test_serialization_tags_match_jax(engines):
 
 
 # ------------------------------------------------------------ engines
-@pytest.mark.parametrize("name", ["pysocket", "pyrobust", "native", "xla",
+@pytest.mark.parametrize("name", ["pyrobust", "native", "xla",
                                   "mock", "mpi", "bogus"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError,
@@ -263,7 +263,12 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
                 "rabit_tpu_torch.transport.framing",
                 "rabit_tpu_torch.transport.tcp",
                 "rabit_tpu_torch.transport.factory",
-                "rabit_tpu_torch.sched.topo", "rabit_tpu_torch.sched.tuner"):
+                "rabit_tpu_torch.sched.topo", "rabit_tpu_torch.sched.tuner",
+                "rabit_tpu_torch.engine.pysocket",
+                "rabit_tpu_torch.transport.pump",
+                "rabit_tpu_torch.sched.base", "rabit_tpu_torch.sched.tree",
+                "rabit_tpu_torch.sched.ring", "rabit_tpu_torch.sched.halving",
+                "rabit_tpu_torch.utils.units", "rabit_tpu_torch.utils.net"):
         assert f"'{mod}'" in proc.stdout
 
 
