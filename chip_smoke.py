@@ -113,7 +113,30 @@ Phases, each raising on failure (the script then exits non-zero):
     kernel, B3's launches per rank against the level chunks.  It prints
     each rank's time split (staging or binning, kernel, wire, rest), the
     schedule the stats rode and the allreduce times at the stats' and
-    the largest level's sizes.
+    the largest level's sizes;
+18. (after 17) the pysocket engine's async pump, bucket fusion, custom
+    reduction and hierarchical schedule at world 3: the port's
+    ``Tracker(3)`` twice and three rank processes again (this script
+    with ``--phase18-rank``).  (a) Each rank takes its third of phase
+    10's rows (699,051 x 64, 256 bins and the missing slot, binned on
+    the card from rank 0's cuts) and one tree level of 32 nodes: each
+    node's (64, 257, 2) float32 histogram (131,584 B) comes from B3 over
+    the rows with that node's weights (zero elsewhere) and is issued
+    through ``build_allreduce_async(..., fuse=True)``, waited in issue
+    order; the fused results must equal, bit for bit, the same local
+    histograms allreduced with ``fuse=False`` and through
+    ``allreduce_many``, on every rank alike, with 32 B3 launches and 5
+    fused wire ops (buckets of 7, 7, 7, 7 and 4 under the 1 MiB
+    ``rabit_bucket_bytes``) a rank; it prints the stream's host time
+    and the fused and solo wire times.  (b) ``kmeans.run`` on phase 17's
+    dense16 thirds, 3 iterations, under ``rabit_sched=hier`` with
+    ``RABIT_TRACKER_GROUPS=0,0,1`` (ranks 0 and 1 one group, rank 2 the
+    other): counts exact against phase 17's oracle every iteration,
+    centroids bit-identical on the ranks, B1 on each, the stats
+    allreduce time printed beside phase 17's ring.  (c) The last
+    iteration's local (64, 257) stats through ``allreduce_custom`` with
+    an ``np.add`` reducer: the bits of a forced-tree ``allreduce`` SUM
+    of the same stats, on every rank.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -1709,6 +1732,9 @@ W3_GB_ROUNDS = 2                  # boosting rounds at world 3
 W3_RUNS = ("kmeans", "f32 kernel", "plain", "bf16 kernel")
 W3_GB_KW = {"f32 kernel": dict(compute_dtype="float32"),
             "plain": dict(use_kernel=False), "bf16 kernel": {}}
+P18_NODES = 32                    # nodes of phase 18's tree level
+P18_GROUPS = "0,0,1"              # RABIT_TRACKER_GROUPS of its hier run
+P18_BUCKET = 1 << 20              # the engine's default rabit_bucket_bytes
 
 
 def world3_picks(n, k, world):
@@ -1942,20 +1968,19 @@ def _ms(seconds):
     return f"{seconds * 1e3:.3f}"
 
 
-def world3_phase(torch, km, kk):
-    """Phase 17: k-means and GBDT at world 3 over the port's
-    PySocketEngine, three rank processes sharing the card (see
-    ``world3_rank``), against a world-1 oracle for k-means and against
-    the plain path for GBDT.  Returns each kernel's launches by rank."""
+def _run_rank_processes(flag, ntrackers, phase, meanwhile=None):
+    """Start the port's ``Tracker(3)`` ``ntrackers`` times on
+    127.0.0.1:0 and three processes of this script with ``flag TASK
+    PORT...`` (no ``RABIT_`` variable in their environment), run
+    ``meanwhile()`` here, and wait: a rank that fails fails the phase at
+    once (the others would wait on it until their link or tracker
+    timeouts).  Returns each rank's last JSON line, once every tracker's
+    ``run()`` has returned after the ranks' shutdowns."""
     from rabit_tpu_torch.tracker.tracker import Tracker
 
-    log(f"[17] world {W3_RANKS} over the port's PySocketEngine: {W3_RANKS} "
-        f"rank processes on one card; k-means dense16 {MAIN_ROWS} x 256 "
-        f"k={K}, {W3_KM_ITERS} iterations; boosting.train {GBDT_ROWS} x "
-        f"{GBDT_FEATURES}, {GBDT_NBIN} bins, depth {GBDT_DEPTH}, "
-        f"{W3_GB_ROUNDS} rounds, three ways")
     t0 = time.perf_counter()
-    trackers = [Tracker(W3_RANKS, host="127.0.0.1", port=0) for _ in W3_RUNS]
+    trackers = [Tracker(W3_RANKS, host="127.0.0.1", port=0)
+                for _ in range(ntrackers)]
     procs = []
     # the ranks' output goes to files: a rank blocked on a full pipe in
     # mid-collective would stall the ranks waiting on it
@@ -1968,13 +1993,65 @@ def world3_phase(torch, km, kk):
                if not k.startswith("RABIT_")}
         env["PYTHONPATH"] = ROOT
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--world3-rank",
-             str(i)] + [str(t.port) for t in trackers], cwd=ROOT, env=env,
+            [sys.executable, os.path.abspath(__file__), flag, str(i)]
+            + [str(t.port) for t in trackers], cwd=ROOT, env=env,
             stdout=logs[i][0], stderr=logs[i][1]) for i in range(W3_RANKS)]
-        # the oracle, while the ranks run: world 1 on the whole data, the
-        # plain device loop from the centroids init_centroids seeds at
-        # world 3 (the same rows, learn/kmeans.py init_centroids), with
-        # no wire
+        if meanwhile is not None:
+            meanwhile()
+        while any(p.poll() is None for p in procs):
+            for i, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"phase-{phase} rank process {i} failed "
+                        f"({p.returncode}):\n"
+                        f"{_read_back(logs[i][1])[-4000:]}")
+            if time.perf_counter() - t0 > W3_TIMEOUT:
+                raise AssertionError(f"the phase-{phase} rank processes "
+                                     f"did not end within {W3_TIMEOUT:g} s")
+            time.sleep(0.2)
+        results = []
+        for i, p in enumerate(procs):
+            stdout, stderr = map(_read_back, logs[i])
+            if p.returncode != 0:
+                raise AssertionError(f"phase-{phase} rank process {i} "
+                                     f"failed ({p.returncode}):\n"
+                                     f"{stderr[-4000:]}")
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+        for t in trackers:
+            t.join(30)
+            if t._thread.is_alive():
+                raise AssertionError(f"a phase-{phase} tracker's run() did "
+                                     f"not return after every shutdown")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for t in trackers:
+            t.stop()
+        for f in (f for pair in logs for f in pair):
+            f.close()
+    return results
+
+
+def world3_phase(torch, km, kk):
+    """Phase 17: k-means and GBDT at world 3 over the port's
+    PySocketEngine, three rank processes sharing the card (see
+    ``world3_rank``), against a world-1 oracle for k-means and against
+    the plain path for GBDT.  Returns each kernel's launches by rank,
+    the oracle's counts and the stats allreduce times."""
+    log(f"[17] world {W3_RANKS} over the port's PySocketEngine: {W3_RANKS} "
+        f"rank processes on one card; k-means dense16 {MAIN_ROWS} x 256 "
+        f"k={K}, {W3_KM_ITERS} iterations; boosting.train {GBDT_ROWS} x "
+        f"{GBDT_FEATURES}, {GBDT_NBIN} bins, depth {GBDT_DEPTH}, "
+        f"{W3_GB_ROUNDS} rounds, three ways")
+    t0 = time.perf_counter()
+    oracle = {}
+
+    def run_oracle():
+        # world 1 on the whole data, the plain device loop from the
+        # centroids init_centroids seeds at world 3 (the same rows,
+        # learn/kmeans.py init_centroids), with no wire
         picks = world3_picks(MAIN_ROWS, K, W3_RANKS)
         data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7, picks=picks)
         init = np.zeros((K, 256), np.float32)
@@ -2002,43 +2079,15 @@ def world3_phase(torch, km, kk):
             want_counts.append(counts[:, 0])
             model.centroids = (stats[:, :-1] / counts).astype(np.float32)
             model.normalize()
-        want_cent = model.centroids
         del shard, x16, v16
         torch.cuda.empty_cache()
-        t_oracle = time.perf_counter() - t0
-        # a rank that fails fails the phase at once: the others would
-        # wait on it until their link or tracker timeouts
-        while any(p.poll() is None for p in procs):
-            for i, p in enumerate(procs):
-                if p.poll() not in (None, 0):
-                    raise AssertionError(
-                        f"world-3 rank process {i} failed ({p.returncode}):"
-                        f"\n{_read_back(logs[i][1])[-4000:]}")
-            if time.perf_counter() - t0 > W3_TIMEOUT:
-                raise AssertionError(f"the world-3 rank processes did not "
-                                     f"end within {W3_TIMEOUT:g} s")
-            time.sleep(0.2)
-        results = []
-        for i, p in enumerate(procs):
-            stdout, stderr = map(_read_back, logs[i])
-            if p.returncode != 0:
-                raise AssertionError(f"world-3 rank process {i} failed "
-                                     f"({p.returncode}):\n{stderr[-4000:]}")
-            results.append(json.loads(stdout.strip().splitlines()[-1]))
-        for t in trackers:
-            t.join(30)
-            if t._thread.is_alive():
-                raise AssertionError("a phase-17 tracker's run() did not "
-                                     "return after every shutdown")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for t in trackers:
-            t.stop()
-        for f in (f for pair in logs for f in pair):
-            f.close()
+        oracle.update(counts=want_counts, cent=model.centroids,
+                      seconds=time.perf_counter() - t0)
+
+    results = _run_rank_processes("--world3-rank", len(W3_RUNS), "17",
+                                  run_oracle)
+    want_counts, want_cent = oracle["counts"], oracle["cent"]
+    t_oracle = oracle["seconds"]
     wall = time.perf_counter() - t0
     by_rank = {r["kmeans"]["rank"]: r for r in results}
     if sorted(by_rank) != list(range(W3_RANKS)):
@@ -2145,7 +2194,326 @@ def world3_phase(torch, km, kk):
         kmeans_stats_dense=[k["launches"]["kmeans_stats_dense"]
                             for k in km3],
         gbdt_hist={label: [g["launches"]["gbdt_hist"] for g in ranks]
-                   for label, ranks in gb3.items() if label != "plain"})
+                   for label, ranks in gb3.items() if label != "plain"},
+        oracle_counts=np.asarray(want_counts).tolist(),
+        ring_stats_ms=[[op[1] * 1e3 for op in k["ops"]
+                        if op[0] == stats_bytes] for k in km3])
+
+
+def phase18_rank(task, ports):
+    """One rank process of phase 18 (``chip_smoke.py --phase18-rank TASK
+    PORT PORT``): (a) the per-node GBDT histogram stream on its third of
+    phase 10's rows under the first tracker; (b) k-means on its third of
+    phase 5's dense16 rows under ``rabit_sched=hier`` and (c) the last
+    iteration's stats through ``allreduce_custom``, under the second.
+    Prints one JSON line: results, digests, counts and times."""
+    import hashlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase-18 ranks run on the card")
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import SUM
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import histogram as bh
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import histogram_kernel as hk
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def init(port, **params):
+        rabit_tpu_torch.init(rabit_engine="pysocket",
+                             rabit_tracker_uri="127.0.0.1",
+                             rabit_tracker_port=port, rabit_task_id=task,
+                             rabit_world_size=W3_RANKS,
+                             rabit_timeout_sec=W3_TIMEOUT, **params)
+        return engine_mod.get_engine(), rabit_tpu_torch.get_rank()
+
+    def reset():
+        for counts in (kk.LAUNCHES, hk.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def digest(arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        return res, time.perf_counter() - t0
+
+    out = {}
+    # (a) one tree level's per-node histograms as a fused async stream
+    eng, rank = init(ports[0])
+    x_all, y_all = gbdt_data(GBDT_ROWS, GBDT_FEATURES, seed=11)
+    s = local_data_slice(rank, W3_RANKS, GBDT_ROWS)
+    x, y = np.ascontiguousarray(x_all[s]), y_all[s]
+    del x_all, y_all
+    # rank 0's quantiles of every 16th row of its shard are everyone's
+    # cuts; the bins are taken on the card, NaN to the missing slot
+    # (learn/histogram.py apply_cuts)
+    cuts = rabit_tpu_torch.broadcast(
+        bh.quantile_cuts(x[::16], GBDT_NBIN) if rank == 0 else None, 0)
+    x_t = torch.from_numpy(x).cuda().T.contiguous()
+    bins_t = torch.searchsorted(torch.from_numpy(cuts).cuda(), x_t,
+                                right=True).to(torch.int32)
+    bins_t[torch.isnan(x_t)] = GBDT_NBIN
+    del x_t
+    yd = torch.from_numpy(np.ascontiguousarray(y)).cuda()
+    grad, hess = 0.5 - yd, torch.full_like(yd, 0.25)
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    node = torch.randint(0, P18_NODES, yd.shape, device="cuda",
+                         generator=gen)
+    weights = [((grad * (node == j)), (hess * (node == j)))
+               for j in range(P18_NODES)]
+    torch.cuda.synchronize()
+    issued, buckets, solo_ops = [], [], [0]
+    real_async = rabit_tpu_torch.allreduce_async
+    real_exec = eng._fused_allreduce_exec
+    real_blocking = eng._allreduce_blocking
+
+    def recording(buf, op=SUM, prepare_fun=None, fuse=True, codec=True):
+        issued.append(buf.copy())    # the local histogram, as issued
+        return real_async(buf, op, prepare_fun, fuse=fuse, codec=codec)
+
+    def counted(items, op):
+        buckets.append(len(items))
+        return real_exec(items, op)
+
+    def solo(buf, op, prepare_fun=None):
+        solo_ops[0] += 1
+        return real_blocking(buf, op, prepare_fun)
+    rabit_tpu_torch.allreduce_async = recording
+    eng._fused_allreduce_exec, eng._allreduce_blocking = counted, solo
+    reset()
+    try:
+        handles, t_issue = timed(lambda: [bh.build_allreduce_async(
+            bins_t.T, g, h, GBDT_NBIN + 1, fuse=True, use_kernel=True)
+            for g, h in weights])
+        fused, t_wait = timed(lambda: [hd.wait() for hd in handles])
+    finally:
+        rabit_tpu_torch.allreduce_async = real_async
+    launches = hk.LAUNCHES["gbdt_hist"]
+    fused_buckets, fused_solo_ops = list(buckets), solo_ops[0]
+    # the same local histograms, solo (fuse=False) and fused again
+    # (allreduce_many), twice each in turn
+    t_solo, t_many = [], []
+    for _ in range(2):
+        solo_ops[0] = 0
+        hs, dt = timed(lambda: [rabit_tpu_torch.allreduce_async(
+            a.copy(), SUM, fuse=False) for a in issued])
+        got, dt2 = timed(lambda: [hd.wait() for hd in hs])
+        t_solo.append(dt + dt2)
+        solo_count = solo_ops[0]
+        buckets.clear()
+        many, dt = timed(lambda: rabit_tpu_torch.allreduce_many(
+            [a.copy() for a in issued]))
+        t_many.append(dt)
+    eng._fused_allreduce_exec, eng._allreduce_blocking = real_exec, \
+        real_blocking
+    flat = [f.reshape(-1) for f in fused]
+    out["stream"] = dict(
+        rank=rank, launches=launches, buckets=fused_buckets,
+        many_buckets=list(buckets),
+        fused_solo_ops=fused_solo_ops, solo_ops=solo_count,
+        shape=list(fused[0].shape), nbytes=int(fused[0].nbytes),
+        same_solo=all(a.tobytes() == b.tobytes()
+                      for a, b in zip(flat, got)),
+        same_many=all(a.tobytes() == b.tobytes()
+                      for a, b in zip(flat, many)),
+        finite=bool(all(np.isfinite(f).all() for f in fused)),
+        hess_sum=float(sum(f[..., 1].sum(dtype=np.float64)
+                           for f in fused)),
+        digest=digest(fused), t_issue=t_issue, t_wait=t_wait,
+        t_solo=t_solo, t_many=t_many)
+    rabit_tpu_torch.finalize()
+    del bins_t, weights, grad, hess, node, yd
+    torch.cuda.empty_cache()
+
+    # (b) k-means, dense16 tier, under the hierarchical schedule
+    eng, rank = init(ports[1], rabit_sched="hier")
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                           picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+    shard = _shard_rows(data, local_data_slice(rank, W3_RANKS, MAIN_ROWS))
+    del data
+    orig_allreduce = eng.allreduce
+    clock = _Clock()
+    clock.wire(eng)
+    timed_allreduce = eng.allreduce
+    counts, local_stats, tiers = [], [], []
+
+    def stats_allreduce(buf, op, prepare_fun=None):
+        def prep():
+            prepare_fun()
+            if buf.ndim == 2:
+                local_stats.append(buf.copy())
+        if prepare_fun is None and buf.ndim == 2:
+            local_stats.append(buf.copy())
+        res = timed_allreduce(buf, op, prep if prepare_fun else None)
+        if res.ndim == 2:
+            counts.append(res[:, -1].tolist())
+        return res
+    eng.allreduce = stats_allreduce
+    real_prepare = km.prepare_shard
+
+    def dense16(*a, **k):
+        staged = real_prepare(*a, budget=0, **k)
+        tiers.append(staged[0])
+        return staged
+    km.prepare_shard = dense16
+    reset()
+    try:
+        model, wall = timed(lambda: km.run(shard, K, W3_KM_ITERS,
+                                           compute_dtype="bfloat16"))
+        torch.cuda.synchronize()
+    finally:
+        km.prepare_shard = real_prepare
+        eng.allreduce = orig_allreduce
+    stats_bytes = K * 257 * 4
+    out["hier"] = dict(
+        rank=rank, groups=list(eng._groups), tiers=tiers, counts=counts,
+        centroids=model.centroids.tolist(), launches=dict(kk.LAUNCHES),
+        hist_launches=hk.LAUNCHES["gbdt_hist"], wall=wall,
+        stats_ms=[op[1] * 1e3 for op in clock.ops if op[0] == stats_bytes],
+        scheds=sorted({op[2] for op in clock.ops
+                       if op[0] == stats_bytes}))
+    # (c) the last iteration's stats through allreduce_custom
+    local = local_stats[-1]
+    eng.set_schedule("tree")
+    tree = rabit_tpu_torch.allreduce(local.copy(), SUM)
+    tree_sched = eng._op_sched
+    eng.set_schedule("hier")
+    custom, t_custom = timed(lambda: rabit_tpu_torch.allreduce_custom(
+        local.copy(), lambda dst, src: np.add(dst, src, out=dst)))
+    out["custom"] = dict(rank=rank, shape=list(local.shape),
+                         tree_sched=tree_sched, custom_sched=eng._op_sched,
+                         same=custom.tobytes() == tree.tobytes(),
+                         digest=digest([custom]), ms=t_custom * 1e3)
+    rabit_tpu_torch.finalize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase18(torch, w3):
+    """Phase 18: the async per-node histogram stream, k-means under the
+    hierarchical schedule and ``allreduce_custom`` at world 3 over the
+    port's PySocketEngine (see ``phase18_rank``), three rank processes
+    on the card.  Returns B1's and B3's launches by rank."""
+    per = -(-P18_NODES // (P18_BUCKET // (GBDT_FEATURES * (GBDT_NBIN + 1)
+                                          * 2 * 4)))
+    log(f"[18] world {W3_RANKS}: async per-node stream ({P18_NODES} nodes "
+        f"x ({GBDT_FEATURES}, {GBDT_NBIN + 1}, 2) float32 from B3, fused "
+        f"under a {P18_BUCKET} B bucket: {per} wire ops expected), "
+        f"k-means dense16 under rabit_sched=hier with "
+        f"RABIT_TRACKER_GROUPS={P18_GROUPS}, allreduce_custom")
+    t0 = time.perf_counter()
+    saved = os.environ.get("RABIT_TRACKER_GROUPS")
+    # the trackers run here: their topology replies carry the groups
+    os.environ["RABIT_TRACKER_GROUPS"] = P18_GROUPS
+    try:
+        results = _run_rank_processes("--phase18-rank", 2, "18")
+    finally:
+        if saved is None:
+            os.environ.pop("RABIT_TRACKER_GROUPS", None)
+        else:
+            os.environ["RABIT_TRACKER_GROUPS"] = saved
+    # (a) the stream
+    st = sorted((r["stream"] for r in results), key=lambda r: r["rank"])
+    if [r["rank"] for r in st] != list(range(W3_RANKS)):
+        raise AssertionError(f"phase-18 ranks {[r['rank'] for r in st]}")
+    cap = P18_BUCKET // st[0]["nbytes"]
+    want_buckets = [cap] * (P18_NODES // cap) + (
+        [P18_NODES % cap] if P18_NODES % cap else [])
+    for r in st:
+        bad = []
+        if r["shape"] != [GBDT_FEATURES, GBDT_NBIN + 1, 2]:
+            bad.append(f"shape {r['shape']}")
+        if r["launches"] != P18_NODES:
+            bad.append(f"{r['launches']} B3 launches")
+        if r["buckets"] != want_buckets or r["fused_solo_ops"]:
+            bad.append(f"wire ops: buckets {r['buckets']} and "
+                       f"{r['fused_solo_ops']} solo ops")
+        if r["many_buckets"] != want_buckets:
+            bad.append(f"allreduce_many buckets {r['many_buckets']}")
+        if r["solo_ops"] != P18_NODES:
+            bad.append(f"{r['solo_ops']} solo ops with fuse=False")
+        if not (r["same_solo"] and r["same_many"] and r["finite"]):
+            bad.append(f"fused equal to solo {r['same_solo']}, to "
+                       f"allreduce_many {r['same_many']}, finite "
+                       f"{r['finite']}")
+        if r["digest"] != st[0]["digest"]:
+            bad.append("fused bits differ from rank 0's")
+        # every row sits in one node: the hessians sum to 0.25 x rows x f
+        want_h = 0.25 * GBDT_ROWS * GBDT_FEATURES
+        if abs(r["hess_sum"] - want_h) > 1e-3 * want_h:
+            bad.append(f"hessian mass {r['hess_sum']} vs {want_h}")
+        if bad:
+            raise AssertionError(f"phase 18 stream rank {r['rank']}: "
+                                 + "; ".join(bad))
+    log(f"    stream: {P18_NODES} nodes x {st[0]['nbytes']} B on each rank, "
+        f"B3 launches by rank {[r['launches'] for r in st]}, wire ops "
+        f"{st[0]['buckets']} (fused) vs {st[0]['solo_ops']} solo; fused "
+        f"bits equal fuse=False and allreduce_many on every rank, and "
+        f"the ranks' bits agree")
+    for r in st:
+        log(f"      rank {r['rank']}: issue (B3 + copy + enqueue) "
+            f"{_ms(r['t_issue'])} ms, wait {_ms(r['t_wait'])} ms; wire of "
+            f"the same locals: fused (allreduce_many) "
+            f"{[_ms(t) for t in r['t_many']]} ms, solo (fuse=False) "
+            f"{[_ms(t) for t in r['t_solo']]} ms")
+    # (b) k-means under hier
+    hr = sorted((r["hier"] for r in results), key=lambda r: r["rank"])
+    want_counts = np.asarray(w3["oracle_counts"])
+    cents = [np.asarray(r["centroids"], np.float32) for r in hr]
+    for r, c in zip(hr, cents):
+        got = np.asarray(r["counts"])
+        if r["groups"] != [int(g) for g in P18_GROUPS.split(",")] or \
+                r["scheds"] != ["hier"] or r["tiers"] != ["dense16"]:
+            raise AssertionError(f"phase 18 hier rank {r['rank']}: groups "
+                                 f"{r['groups']}, stats rode "
+                                 f"{r['scheds']}, tiers {r['tiers']}")
+        if got.shape != want_counts.shape or \
+                not np.array_equal(got, want_counts):
+            raise AssertionError(f"phase 18 hier rank {r['rank']}: counts "
+                                 f"{got.tolist()} vs the oracle's "
+                                 f"{want_counts.tolist()}")
+        if r["launches"]["kmeans_stats_dense"] < W3_KM_ITERS or \
+                r["launches"]["kmeans_stats_ell"] or r["hist_launches"]:
+            raise AssertionError(f"phase 18 hier rank {r['rank']}: "
+                                 f"launches {r['launches']}")
+        if not (np.isfinite(c).all() and np.array_equal(c, cents[0])):
+            raise AssertionError("phase 18 hier: the ranks' centroids "
+                                 "differ")
+    ring = [statistics.median(v) for v in w3["ring_stats_ms"]]
+    log(f"    k-means hier: counts of all {W3_KM_ITERS} iterations equal "
+        f"the oracle's, centroids bit-identical on the ranks, B1 launches "
+        f"by rank {[r['launches']['kmeans_stats_dense'] for r in hr]}; "
+        f"stats allreduce ({K * 257 * 4} B) by rank and iteration "
+        f"{[[_ms(t / 1e3) for t in r['stats_ms']] for r in hr]} ms "
+        f"under hier, medians {[_ms(statistics.median(r['stats_ms']) / 1e3) for r in hr]}"
+        f" ms beside phase 17's ring {[_ms(t / 1e3) for t in ring]} ms; "
+        f"run() {[round(r['wall'], 3) for r in hr]} s")
+    # (c) allreduce_custom against the forced-tree SUM
+    cu = sorted((r["custom"] for r in results), key=lambda r: r["rank"])
+    for r in cu:
+        if not r["same"] or r["tree_sched"] != "tree" or \
+                r["custom_sched"] != "tree" or r["digest"] != cu[0]["digest"]:
+            raise AssertionError(f"phase 18 allreduce_custom rank "
+                                 f"{r['rank']}: {r}")
+    log(f"    allreduce_custom (np.add) of the {tuple(cu[0]['shape'])} "
+        f"stats: the forced-tree SUM's bits on every rank, "
+        f"{[_ms(r['ms'] / 1e3) for r in cu]} ms by rank")
+    log(f"    phase 18 wall {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans_stats_dense=[r["launches"]["kmeans_stats_dense"]
+                                    for r in hr],
+                gbdt_hist=[r["launches"] for r in st])
 
 
 def main() -> int:
@@ -2597,6 +2965,14 @@ def main() -> int:
         if line["name"] in w3:
             line["world3_launches_by_rank"] = w3[line["name"]]
     log(f"    phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    # 18. the async per-node stream, hier and allreduce_custom at world 3
+    t0 = time.perf_counter()
+    p18 = phase18(torch, w3)
+    for line in lines:
+        if line["name"] in p18:
+            line["phase18_launches_by_rank"] = p18[line["name"]]
+    log(f"    phase 18 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -2610,4 +2986,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world3-rank"]:
         sys.exit(world3_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
+    if sys.argv[1:2] == ["--phase18-rank"]:
+        sys.exit(phase18_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     sys.exit(main())

@@ -91,18 +91,69 @@ def allreduce(data, op: ReduceOp = SUM,
 
 def allreduce_async(data: np.ndarray, op: ReduceOp = SUM,
                     prepare_fun: Optional[Callable[[], None]] = None,
-                    fuse: bool = True):
+                    fuse: bool = True, codec: bool = True):
     """Issue an allreduce without blocking; returns a
     :class:`~rabit_tpu_torch.engine.interface.CollectiveHandle` whose
     ``wait()`` yields the reduced array (the in-place semantics of
-    :func:`allreduce`).  ``fuse=False`` asks an engine that buckets small
-    ops to dispatch this one at once; engines without an async path run
-    the op at issue time and return a resolved handle.
+    :func:`allreduce`).
+
+    On the pysocket engine the op is driven by a background progress
+    thread, so host compute overlaps the wire; small same-op/same-dtype
+    payloads issued back to back coalesce into one fused wire op
+    (``rabit_bucket_bytes``, 1 MiB by default, 0 turns fusion off).  A
+    bucketed op only reaches the wire when its bucket flushes, so pass
+    ``fuse=False`` for a lone latency-sensitive op.  Handles must be
+    waited in issue order; the array must not be read or written
+    between issue and ``wait()``.  Engines without an async path run the
+    op at issue time and return a resolved handle.  ``codec=False`` is
+    the reference's per-op wire-codec opt-out; no codec is ported, but
+    the flag keys the buckets as the reference's does.
     """
     eng = _engine_mod.get_engine()
     check(isinstance(data, np.ndarray) and data.flags.c_contiguous,
           "allreduce_async: need a C-contiguous numpy array")
-    return eng.allreduce_async(data, op, prepare_fun, fuse=fuse)
+    return eng.allreduce_async(data, op, prepare_fun, fuse=fuse,
+                               codec=codec)
+
+
+def allgather_async(data: np.ndarray):
+    """Issue an allgather without blocking; ``wait()`` returns the
+    (world, *shape) stacked array (see :func:`allreduce_async` for the
+    ordering and aliasing rules)."""
+    eng = _engine_mod.get_engine()
+    check(isinstance(data, np.ndarray) and data.flags.c_contiguous,
+          "allgather_async: need a C-contiguous numpy array")
+    return eng.allgather_async(data)
+
+
+def allreduce_many(arrays, op: ReduceOp = SUM) -> list:
+    """Allreduce a batch of independent arrays as one fused operation:
+    every array is issued async, the engine fuses eligible ones into
+    shared wire ops, and the results come back in order — bit-identical
+    to reducing each array with :func:`allreduce` separately, with one
+    wire op per ``rabit_bucket_bytes`` of payload instead of one per
+    array."""
+    eng = _engine_mod.get_engine()
+    check(len(arrays) > 0, "allreduce_many: need at least one array")
+    for a in arrays:
+        check(isinstance(a, np.ndarray) and a.flags.c_contiguous,
+              "allreduce_many: need C-contiguous numpy arrays")
+    handles = [eng.allreduce_async(a, op) for a in arrays]
+    return [h.wait() for h in handles]
+
+
+def allreduce_custom(data: np.ndarray,
+                     reducer: Callable[[np.ndarray, np.ndarray], None],
+                     prepare_fun: Optional[Callable[[], None]] = None
+                     ) -> np.ndarray:
+    """Allreduce with a user-defined reduction: ``reducer(dst, src)``
+    folds ``src`` into ``dst`` in place, row-wise over axis 0, and must
+    be associative and commutative (the pysocket engine folds in tree
+    order)."""
+    eng = _engine_mod.get_engine()
+    check(isinstance(data, np.ndarray) and data.flags.c_contiguous,
+          "allreduce_custom: need a C-contiguous numpy array")
+    return eng.allreduce_custom(data, reducer, prepare_fun)
 
 
 def broadcast(data: Any, root: int) -> Any:
@@ -144,6 +195,13 @@ def checkpoint(global_model: Any, local_model: Any = None) -> None:
     _engine_mod.get_engine().checkpoint(
         serialize_model(global_model),
         serialize_model(local_model) if local_model is not None else None)
+
+
+def lazy_checkpoint(global_model: Any) -> None:
+    """Checkpoint that defers serialization until a peer needs the
+    payload (engines without recovery serialize it at commit)."""
+    _engine_mod.get_engine().checkpoint(
+        None, None, lazy_global=lambda: serialize_model(global_model))
 
 
 def version_number() -> int:

@@ -53,8 +53,12 @@ class EmptyEngine(Engine):
     def load_checkpoint(self) -> tuple[int, Optional[bytes], Optional[bytes]]:
         return (self._version, self._global, self._local)
 
-    def checkpoint(self, global_model: bytes,
-                   local_model: Optional[bytes] = None) -> None:
+    def checkpoint(self, global_model: Optional[bytes],
+                   local_model: Optional[bytes] = None,
+                   lazy_global: Optional[Callable[[], bytes]] = None
+                   ) -> None:
+        if global_model is None and lazy_global is not None:
+            global_model = lazy_global()
         self._global = global_model
         self._local = local_model
         self._version += 1

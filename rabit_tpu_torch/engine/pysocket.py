@@ -2,9 +2,11 @@
 
 PyTorch-port counterpart of :class:`rabit_tpu.engine.pysocket.PySocketEngine`
 (its own copy: the port imports nothing of the JAX package), carried as
-far as its synchronous core: tracker rendezvous, persistent
-worker-worker links, and the core collectives, with the reference's
-names and structure so that each member has its counterpart there.  It
+far as its collective API: tracker rendezvous, persistent
+worker-worker links, the core collectives, the async progress pump with
+small-op bucket fusion, custom reductions and the hierarchical
+schedule, with the reference's names and structure so that each member
+has its counterpart there.  It
 is byte-compatible on the wire: port ranks and reference ranks form one
 world, and for the same inputs every rank gets the same bits either
 engine would give.
@@ -15,8 +17,9 @@ reference's own):
 * Large allreduces use **ring reduce-scatter + all-gather** (bandwidth
   optimal, every link equally loaded) instead of a pipelined binary
   tree; small payloads use the tree (log2 n hops beats n hops on
-  latency).  ``rabit_sched`` forces ``tree``, ``ring`` or ``halving``
-  (recursive halving/doubling) instead.
+  latency).  ``rabit_sched`` forces ``tree``, ``ring``, ``halving``
+  (recursive halving/doubling) or ``hier`` (the two-level schedule over
+  the tracker's host groups) instead.
 * Any-root broadcast is a plain tree flood: the root sends on all its
   tree links, everyone else forwards from the one link toward the root
   to the rest.
@@ -26,14 +29,15 @@ Payloads are numpy arrays, as the reference engine moves numpy; a
 ROADMAP A5).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
-the async pump and bucket fusion, heartbeats, ``allreduce_custom`` and
-the hierarchical schedule (A3); the robust layer and elastic rescale
-(A4); shared-memory links, the tuning cache and the ``auto``, ``swing``
-and ``synth`` schedules, wire codecs, chaos injection, telemetry and
-tracing, the shard directory and link pacing (A8).
+heartbeats (A3b); the robust layer and elastic rescale (A4);
+shared-memory links, the tuning cache and the ``auto``, ``swing`` and
+``synth`` schedules, wire codecs, chaos injection, telemetry and
+tracing (the reference's ``async.*`` instruments among them), the
+shard directory and link pacing (A8).
 """
 from __future__ import annotations
 
+import collections
 import os
 import random
 import socket
@@ -47,12 +51,13 @@ import torch
 
 from rabit_tpu_torch import sched as sched_mod
 from rabit_tpu_torch import transport as tr
-from rabit_tpu_torch.engine.interface import Engine
+from rabit_tpu_torch.engine.interface import (AsyncOrderError,
+                                              CollectiveHandle, Engine)
 from rabit_tpu_torch.ops import ReduceOp
 from rabit_tpu_torch.ops.reduce_ops import apply_op_numpy
 from rabit_tpu_torch.tracker import protocol as P
 from rabit_tpu_torch.transport import LinkError
-from rabit_tpu_torch.utils.checks import check, log
+from rabit_tpu_torch.utils.checks import RabitError, check, log
 from rabit_tpu_torch.utils.net import routable_ip
 from rabit_tpu_torch.utils.units import parse_byte_size
 
@@ -72,9 +77,12 @@ PIPE_CHUNK_BYTES = 64 << 10
 # double buffering — chunk k+1's exchange is on the wire while chunk k
 # is merged.  1 = the serial hop loop, byte- and bit-identical.
 PIPE_DEPTH = 2
+# Async small-op coalescing budget (rabit_bucket_bytes): same-op/same-dtype
+# allreduces at or below this size fuse into one wire op.
+DEFAULT_BUCKET_BYTES = 1 << 20
 
 # Where each knob the port refuses lands in ROADMAP.md's queue A.
-_SCHED_ITEMS = {"auto": "A8", "swing": "A8", "synth": "A8", "hier": "A3"}
+_SCHED_ITEMS = {"auto": "A8", "swing": "A8", "synth": "A8"}
 
 
 def _off(raw) -> bool:
@@ -117,6 +125,15 @@ class TrackerLostError(LinkError):
     """The tracker stayed unreachable across the full registration
     retry budget — the job's coordinator is gone.  A tracker merely
     restarting on the same port reads as a stall, never an error."""
+
+
+class AsyncPumpError(RuntimeError):
+    """The async progress pump died; queued collectives can never run.
+
+    Raised at ``CollectiveHandle.wait()`` for every op that was queued
+    behind (or issued after) the pump's death — the stream is poisoned
+    so callers fail loudly instead of hanging on handles nobody will
+    ever resolve."""
 
 
 class _ScratchArena:
@@ -209,6 +226,24 @@ class PySocketEngine(Engine):
         self._sched_name = "static"
         self._ring_threshold: Optional[int] = None  # None -> module global
         self._op_sched: Optional[str] = None  # schedule of the last dispatch
+        # The topology handout's host groups feed the hierarchical
+        # schedule; the straggler-demotion set of the reference's
+        # adaptive controller stays empty (ROADMAP A8).
+        self._groups: list[int] = []
+        self._demoted: frozenset = frozenset()
+        self._bucket_bytes = DEFAULT_BUCKET_BYTES
+        # Async collective stream: a single background progress thread
+        # (created lazily on the first *_async call) executes queued ops
+        # strictly in issue order, so the wire sees the exact op
+        # sequence a blocking caller would produce.
+        self._aq: collections.deque = collections.deque()
+        self._aq_cv = threading.Condition()
+        self._aq_thread: Optional[threading.Thread] = None
+        self._aq_inflight = 0   # queued-but-unfinished op groups
+        self._pump_error: Optional[Exception] = None  # pump died: poisoned
+        self._issue_idx = 0     # async handles issued (user ops)
+        self._wait_idx = 0      # next handle index allowed to wait()
+        self._pending: Optional[dict] = None  # open coalescing bucket
 
     # ------------------------------------------------------------------
     # lifecycle / rendezvous
@@ -260,6 +295,12 @@ class PySocketEngine(Engine):
             return raw if raw is not None else os.environ.get(key.upper())
 
         self._refuse_unported(params, _param_or_env)
+        # Small-op coalescing budget for the async path (0 disables
+        # fusion; async ops still overlap).  Buckets are collective ops,
+        # so this MUST be uniform across ranks — which is why it is
+        # never derived from rank-local knobs like rabit_reduce_buffer.
+        self._bucket_bytes = _size_or_zero(
+            _param_or_env("rabit_bucket_bytes"), DEFAULT_BUCKET_BYTES)
         # Socket buffer sizes (SO_SNDBUF/SO_RCVBUF) for worker-worker
         # links; 0 keeps the kernel default.
         self._sock_buf = _size_or_zero(_param_or_env("rabit_sock_buf"), 0)
@@ -364,7 +405,7 @@ class PySocketEngine(Engine):
             raw = param_or_env(key)
             if raw is not None and str(raw).strip():
                 refuse(key, raw, "A8")
-        for key, item in (("rabit_heartbeat_sec", "A3"),
+        for key, item in (("rabit_heartbeat_sec", "A3b"),
                           ("rabit_link_mbps", "A8"),
                           ("rabit_trace_sample", "A8")):
             raw = param_or_env(key)
@@ -478,6 +519,9 @@ class PySocketEngine(Engine):
             self._tree_links = list(topo.neighbors)
             self._ring_prev = topo.ring_prev
             self._ring_next = topo.ring_next
+            # Host-group handout for the hierarchical schedule (one id
+            # per rank; empty from a pre-sched tracker).
+            self._groups = list(topo.groups)
             os.environ["RABIT_TPU_LOG_TAG"] = f"rank{self._rank}"
             self._lf = tr.LinkFactory(self._tcfg, self._rank,
                                       timeout=self._timeout,
@@ -614,15 +658,47 @@ class PySocketEngine(Engine):
         config), negotiates integrity framing where configured, and
         applies the shared socket setup (rabit_sock_buf, TCP_NODELAY,
         timeout) on every link.
+
+        The listener's port is an ephemeral one, so a stray client — a
+        process still dialing a port it once knew, such as a worker
+        whose tracker died — can reach it.  The reference would take
+        such a connection as a link; here a connection whose handshake
+        fails, or that names a rank that cannot dial this one (only
+        higher ranks of the world do, each once), is logged and closed,
+        and the accepts go on within the same ``rabit_timeout_sec``.
+        A valid peer's bytes are the reference's either way.
         """
         for peer_rank, host, port in topo.connect:
             s = self._dial_retry((host, port), "connect")
             self._links[peer_rank] = self._lf.dial(s, peer_rank)
-        self._listener.settimeout(self._timeout)
-        for _ in range(topo.naccept):
-            s, _addr = self._listener.accept()
-            link, peer_rank = self._lf.accept(s)
+        deadline = (None if self._timeout is None
+                    else time.monotonic() + self._timeout)
+        need = topo.naccept
+        while need:
+            if deadline is not None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise socket.timeout(
+                        f"rank {self._rank}: {need} peer link(s) not "
+                        f"accepted within rabit_timeout_sec")
+                self._listener.settimeout(left)
+            s, addr = self._listener.accept()
+            try:
+                link, peer_rank = self._lf.accept(s)
+            except (OSError, RabitError, P.HandshakeError) as e:
+                log("dropped a stray connection from %s:%d on the link "
+                    "listener: %s", addr[0], addr[1], e)
+                s.close()
+                continue
+            if not self._rank < peer_rank < self._world \
+                    or peer_rank in self._links:
+                log("dropped a stray connection from %s:%d on the link "
+                    "listener: it named rank %d", addr[0], addr[1],
+                    peer_rank)
+                link.close()
+                continue
             self._links[peer_rank] = link
+            need -= 1
         self._listener.close()
         self._listener = None
 
@@ -644,6 +720,8 @@ class PySocketEngine(Engine):
             self._listener = None
 
     def shutdown(self) -> None:
+        self._fence()
+        self._stop_pump()
         if self._tracker_addr is not None:
             try:
                 self._tracker_connect(P.CMD_SHUTDOWN).close()
@@ -709,11 +787,17 @@ class PySocketEngine(Engine):
     def _exchange(self, send_rank: int, send_data: memoryview,
                   recv_rank: int, recv_buf: memoryview) -> None:
         """Full-duplex: stream send_data to one peer while filling
-        recv_buf from another — avoids ring deadlock without threads.
-        (The reference's vectored ``_exchange_v`` serves its fused
-        segmented ring, ROADMAP A3.)"""
-        tr.exchange(self._links[send_rank], [send_data],
-                    self._links[recv_rank], [recv_buf], self._timeout)
+        recv_buf from another — avoids ring deadlock without threads."""
+        self._exchange_v(send_rank, [send_data], recv_rank, [recv_buf])
+
+    def _exchange_v(self, send_rank: int, send_parts: list,
+                    recv_rank: int, recv_parts: list) -> None:
+        """Vectored full-duplex exchange: scatter-gather send of
+        ``send_parts`` (no intermediate concatenation copy) while
+        filling ``recv_parts`` in order.  The fused segmented-ring hot
+        path moves every member's block through here."""
+        tr.exchange(self._links[send_rank], send_parts,
+                    self._links[recv_rank], recv_parts, self._timeout)
 
     # ------------------------------------------------------------------
     # hop pipelining
@@ -852,6 +936,7 @@ class PySocketEngine(Engine):
         prepare_fun: Optional[Callable[[], None]] = None,
     ) -> np.ndarray:
         self._host_only(buf, "allreduce")
+        self._fence()
         return self._allreduce_blocking(buf, op, prepare_fun)
 
     def _allreduce_blocking(
@@ -861,7 +946,8 @@ class PySocketEngine(Engine):
         prepare_fun: Optional[Callable[[], None]] = None,
     ) -> np.ndarray:
         """The blocking op body: fill (``prepare_fun``), then reduce in
-        place through the wire."""
+        place through the wire.  Also run (in issue order) by the async
+        progress thread — which must not re-enter the fence."""
         if prepare_fun is not None:
             prepare_fun()
         if self._world == 1:
@@ -904,6 +990,21 @@ class PySocketEngine(Engine):
         if s.applies(self, nbytes):
             return s
         return self._static_schedule(nbytes)
+
+    def set_schedule(self, name: str) -> None:
+        """Switch the selection mode at runtime (bench/tests hook).
+        Like rabit_sched itself, the value MUST be uniform across ranks
+        and changed only between collectives.  The reference's modes
+        that are not ported raise :class:`NotImplementedError` naming
+        their ROADMAP item, as the knob does."""
+        if name in _SCHED_ITEMS:
+            raise NotImplementedError(
+                f"schedule {name!r} is not ported to rabit_tpu_torch yet "
+                f"(ROADMAP {_SCHED_ITEMS[name]})")
+        check(name in sched_mod.MODES,
+              "schedule must be one of %s, got %r",
+              "/".join(sched_mod.MODES), name)
+        self._sched_name = name
 
     def _allreduce_dispatch(self, buf: np.ndarray, op: ReduceOp) -> None:
         if buf.nbytes == 0:
@@ -1006,7 +1107,51 @@ class PySocketEngine(Engine):
         self._tree_chunked(memoryview(flat).cast("B"), len(flat),
                            flat.itemsize, merge)
 
+    def allreduce_custom(self, buf: np.ndarray, reducer, prepare_fun=None
+                         ) -> np.ndarray:
+        """Tree-fold custom allreduce: the Python ``reducer(dst, src)``
+        merges per tree edge, O(log n) payload hops — replacing the
+        interface's allgather-and-fold default (O(world x payload)).
+        Chunked row-wise to the reduce-buffer budget like
+        _tree_allreduce; the reducer must be associative+commutative
+        (merge order is tree order)."""
+        self._host_only(buf, "allreduce_custom")
+        self._fence()
+        return self._allreduce_custom_blocking(buf, reducer, prepare_fun)
+
+    def _allreduce_custom_blocking(self, buf: np.ndarray, reducer,
+                                   prepare_fun=None) -> np.ndarray:
+        if prepare_fun is not None:
+            prepare_fun()
+        if self._world == 1:
+            return buf
+        return self._allreduce_custom_impl(buf, reducer)
+
+    def _allreduce_custom_impl(self, buf: np.ndarray, reducer) -> np.ndarray:
+        # Custom allreduces always ride the tree fold.
+        self._op_sched = "tree"
+        rows = buf.shape[0] if buf.ndim > 0 else buf.size
+        check(rows > 0, "allreduce_custom: empty buffer")
+        if buf.nbytes == 0:
+            return buf  # zero-size rows: nothing to merge or move
+        row_shape = buf.shape[1:] if buf.ndim > 1 else ()
+        flat = buf.reshape(rows, -1)
+        item = flat.shape[1] * flat.itemsize  # bytes per axis-0 row
+        dst_rows = buf.reshape((rows,) + row_shape)
+
+        def merge(off: int, n: int, src: memoryview) -> None:
+            rows_in = np.frombuffer(src, dtype=buf.dtype,
+                                    count=n * flat.shape[1])
+            reducer(dst_rows[off:off + n], rows_in.reshape((n,) + row_shape))
+
+        self._tree_chunked(memoryview(flat).cast("B"), rows, item, merge)
+        return buf
+
     def broadcast(self, data: Optional[bytes], root: int) -> bytes:
+        self._fence()
+        return self._broadcast_blocking(data, root)
+
+    def _broadcast_blocking(self, data: Optional[bytes], root: int) -> bytes:
         if self._world == 1:
             check(data is not None, "broadcast: root rank must supply data")
             return data
@@ -1063,6 +1208,10 @@ class PySocketEngine(Engine):
 
     def allgather(self, buf: np.ndarray) -> np.ndarray:
         self._host_only(buf, "allgather")
+        self._fence()
+        return self._allgather_blocking(buf)
+
+    def _allgather_blocking(self, buf: np.ndarray) -> np.ndarray:
         if self._world == 1:
             return buf[None]
         return self._allgather_impl(buf)
@@ -1081,13 +1230,304 @@ class PySocketEngine(Engine):
         return out
 
     # ------------------------------------------------------------------
+    # async collectives: progress thread + small-op bucket fusion
+    # ------------------------------------------------------------------
+    # One background progress thread owns the links while async ops are
+    # in flight; queued ops run strictly in issue order, so the wire
+    # sees exactly the op sequence a blocking caller would produce.
+    # Blocking entry points _fence() first, which also flushes the
+    # coalescing bucket — mixing the two styles is always safe, never
+    # reordered.
+
+    def _ensure_pump(self) -> None:
+        if self._aq_thread is None:
+            self._aq_thread = threading.Thread(
+                target=self._pump, name="rabit-async-pump", daemon=True)
+            self._aq_thread.start()
+
+    def _stop_pump(self) -> None:
+        t = self._aq_thread
+        if t is None:
+            return
+        with self._aq_cv:
+            self._aq.append(None)
+            self._aq_cv.notify_all()
+        t.join(timeout=30)
+        self._aq_thread = None
+
+    def _pump(self) -> None:
+        try:
+            while True:
+                with self._aq_cv:
+                    while not self._aq:
+                        self._aq_cv.wait()
+                    item = self._aq.popleft()
+                if item is None:
+                    return
+                fn, handles = item
+                try:
+                    fn()
+                except Exception as e:  # noqa: BLE001 — surfaces at wait()
+                    self._async_fail(e, handles)
+                except BaseException as e:  # pump-killing failure
+                    self._async_fail(e, handles)
+                    raise
+                finally:
+                    with self._aq_cv:
+                        self._aq_inflight -= 1
+                        self._aq_cv.notify_all()
+        except BaseException as e:  # noqa: BLE001 — pump death: poison,
+            self._poison_pending(e)  # never a downstream hang
+
+    def _poison_pending(self, cause: BaseException) -> None:
+        """The pump thread is dying: every queued (and future) async op
+        can never run.  Fail their handles so ``wait()`` raises
+        :class:`AsyncPumpError` instead of hanging forever, and wake
+        any ``_fence()`` waiter."""
+        err = AsyncPumpError(f"async progress pump died: "
+                             f"{type(cause).__name__}: {cause}")
+        err.__cause__ = cause
+        log("async progress pump died (%s: %s); poisoning %d queued op "
+            "group(s)", type(cause).__name__, cause, len(self._aq))
+        with self._aq_cv:
+            self._pump_error = err
+            drained = list(self._aq)
+            self._aq.clear()
+            self._aq_inflight = 0
+            self._aq_cv.notify_all()
+        for item in drained:
+            if item is None:
+                continue
+            for h in item[1]:
+                if not h.done():
+                    h._fail(err)
+
+    def _async_fail(self, exc: BaseException, handles: tuple) -> None:
+        """Progress-thread failure path: no bare thread tracebacks — the
+        error is logged and re-raises at the caller's ``wait()`` (a link
+        failure surfaces there as :class:`LinkError`, same as the
+        blocking path).  The reference's ``WorldChangedError`` branch
+        (drain the queue, realign the wait cursor, keep the pump alive
+        for a rescaled world) comes with elastic membership, ROADMAP
+        A4."""
+        log("async collective failed in the progress thread: %s: %s",
+            type(exc).__name__, exc)
+        for h in handles:
+            if not h.done():
+                h._fail(exc)
+
+    def _submit(self, fn: Callable[[], None], handles: tuple) -> None:
+        # The pump-death check and the enqueue must be one atomic
+        # section: _poison_pending drains the queue under this same
+        # lock, so an item appended here is either drained by the
+        # poison pass or observed the error first — never enqueued
+        # behind a pump that already exited.
+        with self._aq_cv:
+            if self._pump_error is None:
+                self._ensure_pump()
+                self._aq.append((fn, handles))
+                self._aq_inflight += 1
+                self._aq_cv.notify_all()
+                return
+            err = self._pump_error
+        # The pump is dead; the op can never run.  Poison the handles
+        # at issue so wait() raises immediately.
+        for h in handles:
+            if not h.done():
+                h._fail(err)
+
+    def _fence(self) -> None:
+        """Drain the async stream: flush the pending bucket and wait for
+        every queued op to finish.  Called by every blocking collective,
+        checkpoint and shutdown (never from the pump itself)."""
+        if self._pending is not None:
+            self._flush_bucket()
+        if self._aq_thread is None:
+            return
+        with self._aq_cv:
+            while self._aq_inflight:
+                self._aq_cv.wait()
+
+    def _new_handle(self) -> CollectiveHandle:
+        h = CollectiveHandle(on_wait=self._before_wait)
+        h._issue_index = self._issue_idx
+        self._issue_idx += 1
+        return h
+
+    def _resolve_handle(self, h: CollectiveHandle, result) -> None:
+        h._resolve(result)
+
+    def _before_wait(self, h: CollectiveHandle) -> None:
+        idx = h._issue_index
+        with self._aq_cv:
+            if idx > self._wait_idx:
+                raise AsyncOrderError(
+                    f"async handles must be waited in issue order: handle "
+                    f"#{idx} waited before handle #{self._wait_idx}")
+            if idx < self._wait_idx:
+                return  # idempotent re-wait
+            self._wait_idx = idx + 1
+        if self._pending is not None:
+            self._flush_bucket()
+
+    def allreduce_async(
+        self,
+        buf: np.ndarray,
+        op: ReduceOp,
+        prepare_fun: Optional[Callable[[], None]] = None,
+        fuse: bool = True,
+        codec: bool = True,
+    ) -> CollectiveHandle:
+        """``fuse=False`` is the lone-op escape hatch: a bucketed op
+        only reaches the wire when its bucket flushes (next incompatible
+        op, ``wait()``, or a fence), so a latency-sensitive op with no
+        stream behind it should opt out of coalescing to start
+        immediately and actually overlap the caller's compute.
+        ``codec=False`` is the reference's per-op codec opt-out: no
+        codec is ported (ROADMAP A8), so every op rides the full-width
+        wire, but the flag keys the buckets as the reference's does.
+        Both flags are program order, hence deterministic across
+        ranks."""
+        self._host_only(buf, "allreduce_async")
+        if self._world == 1:
+            return CollectiveHandle.resolved(
+                self.allreduce(buf, op, prepare_fun))
+        h = self._new_handle()
+        flat = buf.reshape(-1)
+        if fuse and 0 < flat.nbytes <= self._bucket_bytes:
+            self._bucket_add(flat, buf, op, prepare_fun, h, codec)
+        else:
+            self._flush_bucket()
+            self._submit(lambda: self._resolve_handle(
+                h, self._allreduce_blocking(buf, op, prepare_fun)), (h,))
+        return h
+
+    def allgather_async(self, buf: np.ndarray) -> CollectiveHandle:
+        self._host_only(buf, "allgather_async")
+        if self._world == 1:
+            return CollectiveHandle.resolved(self.allgather(buf))
+        h = self._new_handle()
+        self._flush_bucket()
+        self._submit(lambda: self._resolve_handle(
+            h, self._allgather_blocking(buf)), (h,))
+        return h
+
+    def _bucket_add(self, flat: np.ndarray, buf: np.ndarray, op: ReduceOp,
+                    prepare_fun, h: CollectiveHandle,
+                    codec: bool = True) -> None:
+        p = self._pending
+        # The codec flag joins op/dtype as a bucket-compatibility key,
+        # as in the reference: a fused wire op has ONE wire format.
+        if p is not None and (p["op"] != op or p["dtype"] != flat.dtype
+                              or p["codec"] != codec
+                              or p["nbytes"] + flat.nbytes
+                              > self._bucket_bytes):
+            self._flush_bucket()
+            p = None
+        if p is None:
+            p = self._pending = {"op": op, "dtype": flat.dtype,
+                                 "codec": codec, "nbytes": 0, "items": []}
+        p["items"].append((flat, buf, prepare_fun, h))
+        p["nbytes"] += flat.nbytes
+
+    def _flush_bucket(self) -> None:
+        p, self._pending = self._pending, None
+        if p is None:
+            return
+        items, op = p["items"], p["op"]
+        if len(items) == 1:
+            _flat, buf, prep, h = items[0]
+            self._submit(lambda: self._resolve_handle(
+                h, self._allreduce_blocking(buf, op, prep)), (h,))
+            return
+        self._submit(lambda: self._fused_allreduce_exec(items, op),
+                     tuple(it[3] for it in items))
+
+    @staticmethod
+    def _scatter_fused(flats: list[np.ndarray], work: np.ndarray) -> None:
+        off = 0
+        for f in flats:
+            f[:] = work[off:off + len(f)]
+            off += len(f)
+
+    def _fused_allreduce_exec(self, items: list, op: ReduceOp) -> None:
+        """Runs ON the progress thread: one wire op for a whole bucket
+        of small same-op/same-dtype allreduces.  The robust engine
+        (ROADMAP A4) overrides this with its consensus/cache/replay
+        protocol (one seqno per bucket)."""
+        for _flat, _buf, prep, _h in items:
+            if prep is not None:
+                prep()
+        self._fused_wire([it[0] for it in items], op)
+        for _flat, buf, _prep, h in items:
+            self._resolve_handle(h, buf)
+
+    def _member_rides_tree(self, flat: np.ndarray, op: ReduceOp) -> bool:
+        """Would this member solo on the tree?  Classified on the same
+        quantity the solo dispatch uses (its bytes, with no codec), so
+        a member takes the identical algorithm (and reduction order)
+        fused or solo."""
+        if self._world == 2:
+            return True
+        return flat.nbytes <= self._ring_crossover()
+
+    def _fused_wire(self, flats: list[np.ndarray], op: ReduceOp) -> None:
+        """In-place fused reduction of same-op/same-dtype member arrays.
+
+        Bit-transparency is the design constraint: fusion must not
+        change any member's element-wise reduction ORDER.  Tree order is
+        position-independent (children-then-parent for every element),
+        so members that would solo on the tree reduce as one
+        concatenated tree op — forced onto the tree even when the
+        concatenation crosses the tree/ring size threshold; ring order
+        depends on a member's own block partition, so ring-class members
+        ride a SEGMENTED ring (per-member block bounds, vectored
+        exchanges) and come out bit-identical to their solo runs.
+
+        Under a forced schedule the bucket instead concatenates whole
+        and rides the selected schedule for the concatenated size: the
+        halving and hierarchical peer patterns partition by block
+        position, so per-member solo order cannot be preserved through
+        fusion anyway — results are exact for exactly-representable
+        payloads and deterministic either way.  (The reference's codec
+        branches wait for ROADMAP A8; without them its
+        ``_ring_allreduce_fused``/``_ring_segmented`` faces are the one
+        call to the segmented pump, ``sched/ring.py``.)
+        """
+        if self._sched_name != "static":
+            if len(flats) == 1:
+                self._allreduce_dispatch(flats[0], op)
+            else:
+                work = np.concatenate(flats)
+                self._allreduce_dispatch(work, op)
+                self._scatter_fused(flats, work)
+            return
+        tree = [f for f in flats if self._member_rides_tree(f, op)]
+        ring = [f for f in flats if not self._member_rides_tree(f, op)]
+        # Span label, as the reference keeps it: a mixed bucket keeps
+        # the label of its LAST wire phase.
+        self._op_sched = "ring" if ring else "tree"
+        if len(tree) == 1:
+            self._allreduce_dispatch(tree[0], op)
+        elif tree:
+            work = np.concatenate(tree)
+            self._tree_allreduce(work, op)
+            self._scatter_fused(tree, work)
+        if ring:
+            sched_mod.ring_segmented(self, ring, op)
+
+    # ------------------------------------------------------------------
     # checkpoints (non-fault-tolerant: process-local, like the reference
     # base engine — the robust layer adds replication/recovery, A4)
     # ------------------------------------------------------------------
     def load_checkpoint(self):
+        self._fence()
         return (self._version, self._global, self._local)
 
-    def checkpoint(self, global_model, local_model=None):
+    def checkpoint(self, global_model, local_model=None, lazy_global=None):
+        self._fence()
+        if global_model is None and lazy_global is not None:
+            global_model = lazy_global()
         self._global = global_model
         self._local = local_model
         self._version += 1

@@ -1,23 +1,36 @@
-"""Ring schedule: bandwidth-optimal reduce-scatter + all-gather.
+"""Ring schedules: bandwidth-optimal reduce-scatter + all-gather.
 
-PyTorch-port counterpart of :mod:`rabit_tpu.sched.ring`, the solo ring
-over the whole world.  The reference's sub-ring keywords serve its
-hierarchical schedule, and its fused segmented ring the async bucket
-path; both come with those (ROADMAP A3), and its ``red_dtype`` (the
-merge type of the bf16 wire) with the codecs (A8).
+PyTorch-port counterpart of :mod:`rabit_tpu.sched.ring`.  The ring walk
+runs over ANY ordered member list — the global world by default, or a
+sub-ring such as the hierarchical schedule's cross-host leader ring.
+The fused segmented variant (one vectored exchange moves every bucket
+member's block per step) lives here too.  The reference's ``red_dtype``
+(the merge type of its bf16 wire) comes with the codecs (ROADMAP A8).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from rabit_tpu_torch.ops import ReduceOp
+from rabit_tpu_torch.ops.reduce_ops import apply_op_numpy
 from rabit_tpu_torch.sched.base import Schedule
 
 
-def ring_allreduce(eng, buf: np.ndarray, op: ReduceOp) -> None:
-    """Bandwidth-optimal ring: reduce-scatter then all-gather."""
-    n, me = eng._world, eng._rank
-    nxt, prev = eng._ring_next, eng._ring_prev
+def ring_allreduce(eng, buf: np.ndarray, op: ReduceOp, *,
+                   ring_rank: int | None = None,
+                   ring_world: int | None = None,
+                   prev: int | None = None, nxt: int | None = None) -> None:
+    """Bandwidth-optimal ring: reduce-scatter then all-gather.
+
+    With the keyword arguments the walk runs over a sub-ring:
+    ``ring_rank``/``ring_world`` index this member within it and
+    ``prev``/``nxt`` are the GLOBAL ranks of its ring neighbors.
+    Defaults reproduce the classic whole-world ring.
+    """
+    n = eng._world if ring_world is None else ring_world
+    me = eng._rank if ring_rank is None else ring_rank
+    nxt = eng._ring_next if nxt is None else nxt
+    prev = eng._ring_prev if prev is None else prev
     flat = buf.reshape(-1)
     view = memoryview(flat).cast("B")
     # Block b covers bytes [off[b], off[b+1]); blocks itemsize-aligned.
@@ -62,6 +75,101 @@ def ring_allreduce(eng, buf: np.ndarray, op: ReduceOp) -> None:
         send_b = me + 1 - s
         recv_b = me - s
         eng._exchange(nxt, block(send_b), prev, block(recv_b))
+
+
+def ring_segmented(eng, tflats: list[np.ndarray], op: ReduceOp) -> None:
+    """Fused multi-member ring: every exchange step moves the
+    corresponding block of EVERY member in one vectored write/read
+    (scatter-gather send, receives landing straight in the member
+    arrays on the all-gather phase — no staging copies), so a bucket of
+    K ring-sized ops costs one ring walk instead of K.  Each member
+    keeps its OWN block partition, hence its solo reduction order, bit
+    for bit."""
+    n = eng._world
+    item = tflats[0].itemsize
+    views = [memoryview(f).cast("B") for f in tflats]
+    bounds = []
+    for f in tflats:
+        per = (len(f) + n - 1) // n
+        bounds.append([min(i * per, len(f)) for i in range(n + 1)])
+    nmem = len(tflats)
+
+    def blk(i: int, b: int) -> memoryview:
+        b %= n
+        return views[i][bounds[i][b] * item: bounds[i][b + 1] * item]
+
+    max_recv = sum((bd[1] - bd[0]) * item for bd in bounds)
+    scratch = eng._arena.take(max_recv)
+    eng._note_scratch(max_recv)
+
+    def _merge_member(i: int, recv_b: int, rpart, rl: int) -> None:
+        nelem = rl // item
+        e0 = bounds[i][recv_b % n]
+        apply_op_numpy(op, tflats[i][e0:e0 + nelem],
+                       np.frombuffer(rpart, dtype=tflats[i].dtype,
+                                     count=nelem))
+
+    try:
+        # Phase 1: reduce-scatter, all members per step.
+        for s in range(n - 1):
+            send_b = eng._rank - s
+            recv_b = eng._rank - s - 1
+            sparts = [blk(i, send_b) for i in range(nmem)]
+            rlens = [len(blk(i, recv_b)) for i in range(nmem)]
+            rparts, off = [], 0
+            for rl in rlens:
+                rparts.append(scratch[off:off + rl])
+                off += rl
+            if eng._pipe_depth > 1 and nmem > 1:
+                # Pipelined fused hop: member i's block merges while
+                # member i+1's exchange is in flight — same bytes in
+                # the same order as the vectored exchange below, so
+                # mixed-depth peers interoperate.  Each member's recv
+                # slice is distinct, so the window needs no slot
+                # leases; the step boundary drains (a merged block is
+                # the NEXT step's send).
+                _seg_hop_pipelined(eng, sparts, rparts, rlens, recv_b,
+                                   _merge_member)
+            else:
+                eng._exchange_v(eng._ring_next, sparts,
+                                eng._ring_prev, rparts)
+                for i, rl in enumerate(rlens):
+                    if rl:
+                        _merge_member(i, recv_b, rparts[i], rl)
+        # Phase 2: all-gather the fully reduced blocks.
+        for s in range(n - 1):
+            send_b = eng._rank + 1 - s
+            recv_b = eng._rank - s
+            eng._exchange_v(
+                eng._ring_next, [blk(i, send_b) for i in range(nmem)],
+                eng._ring_prev, [blk(i, recv_b) for i in range(nmem)])
+    finally:
+        eng._arena.give(scratch)
+
+
+def _seg_hop_pipelined(eng, sparts: list, rparts: list, rlens: list,
+                       recv_b: int, merge_member) -> None:
+    """One pipelined step of the fused segmented ring: per-member chunk
+    pushes through a :class:`~rabit_tpu_torch.transport.pump.HopPipeline`,
+    popped and merged in member order with at most
+    ``rabit_pipeline_depth`` exchanges in flight.  The engine's
+    ``_pipe_run`` owns the open/close/abort choreography."""
+    def body(pipe) -> None:
+        def pop_merge() -> None:
+            i, rl = pipe.pop()
+            if rl:
+                merge_member(i, recv_b, rparts[i], rl)
+
+        for i, sp in enumerate(sparts):
+            if pipe.inflight >= eng._pipe_depth:
+                pop_merge()
+            rl = rlens[i]
+            pipe.push([sp] if len(sp) else [],
+                      [rparts[i]] if rl else [], (i, rl))
+        while pipe.inflight:
+            pop_merge()
+
+    eng._pipe_run(eng._ring_next, eng._ring_prev, "fused ring hop", body)
 
 
 class RingSchedule(Schedule):

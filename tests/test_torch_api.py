@@ -73,6 +73,41 @@ def test_allreduce_async_is_a_resolved_identity(engines):
         rabit_tpu_torch.allreduce_async(torch.zeros(3))
 
 
+@pytest.mark.parametrize("name", [
+    "allgather_async", "allreduce_many", "allreduce_custom",
+    "lazy_checkpoint", "AsyncOrderError", "AsyncPumpError"])
+def test_api_names_match_jax(name):
+    """The async, custom-reduction and lazy-checkpoint names of the JAX
+    package's API are the port's too, exported alike."""
+    assert name in rabit_tpu.__all__ and name in rabit_tpu_torch.__all__
+    ours, theirs = getattr(rabit_tpu_torch, name), getattr(rabit_tpu, name)
+    if isinstance(theirs, type):
+        assert isinstance(ours, type) and issubclass(ours, RuntimeError)
+        assert ours.__mro__[1].__name__ == theirs.__mro__[1].__name__
+    else:
+        import inspect
+
+        assert (list(inspect.signature(ours).parameters)
+                == list(inspect.signature(theirs).parameters))
+
+
+def test_async_custom_and_many_at_world_one(engines):
+    """On the empty engine the new calls are identities with resolved
+    handles, as the JAX package's are."""
+    for pkg in (rabit_tpu, rabit_tpu_torch):
+        h = pkg.allgather_async(np.arange(3))
+        assert h.done() and h.wait().shape == (1, 3)
+        arrays = [np.arange(4.0), np.ones(2, np.int64)]
+        many = pkg.allreduce_many(arrays)
+        assert all(m is a for m, a in zip(many, arrays))
+        a = np.arange(6.0).reshape(3, 2)
+        assert pkg.allreduce_custom(a, np.add) is a
+        with pytest.raises(Exception, match="C-contiguous"):
+            pkg.allreduce_custom(np.zeros((4, 4))[:, ::2], np.add)
+        with pytest.raises(Exception, match="at least one array"):
+            pkg.allreduce_many([])
+
+
 def test_broadcast_and_allgather(engines):
     obj = {"a": [1, 2], "b": "x"}
     assert rabit_tpu_torch.broadcast(obj, 0) == rabit_tpu.broadcast(obj, 0)
@@ -268,6 +303,7 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
                 "rabit_tpu_torch.transport.pump",
                 "rabit_tpu_torch.sched.base", "rabit_tpu_torch.sched.tree",
                 "rabit_tpu_torch.sched.ring", "rabit_tpu_torch.sched.halving",
+                "rabit_tpu_torch.sched.hier",
                 "rabit_tpu_torch.utils.units", "rabit_tpu_torch.utils.net"):
         assert f"'{mod}'" in proc.stdout
 

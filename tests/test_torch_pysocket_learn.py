@@ -6,10 +6,12 @@ processes: this file, run as a script, is the rank worker (below, under
 ``if __name__ == "__main__":``).  Three port ranks and three reference
 ranks (its ``pysocket``; the ELL tier's Pallas kernel in interpret mode,
 as its own tests run it) train on the same seeded shards: k-means on
-the dense and the ell_fused tiers, then ``boosting.train``.  Each rank
-reports every allreduce result it saw and its model; counts and splits
-must be exact, float32 sums, centroids and leaf values within the JAX
-tests' float32 bar, and all ranks of a world must agree.
+the dense and the ell_fused tiers, then ``boosting.train``, then a
+stream of per-node GBDT histograms issued through
+``build_allreduce_async(..., fuse=True)`` as XGBoost issues them.  Each
+rank reports every allreduce result it saw and its model; counts and
+splits must be exact, float32 sums, centroids and leaf values within
+the JAX tests' float32 bar, and all ranks of a world must agree.
 """
 import functools
 import json
@@ -26,7 +28,9 @@ PROC_SEC = 120          # each rank process's time limit
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 KM_ROWS, KM_D, KM_NNZ, KM_K, KM_ITERS = 3 * 1024, 64, 6, 4, 4
 GB_ROWS, GB_F, GB_NBIN, GB_DEPTH, GB_ROUNDS = 3 * 1000, 5, 16, 3, 3
-RUNS = ("dense", "ell_fused", "gbdt")
+RUNS = ("dense", "ell_fused", "gbdt", "stream")
+STREAM_NODES = 8
+STREAM_NBINS = (GB_NBIN, 2048)  # 680 B and 81,960 B a node: tree, ring
 
 
 # ------------------------------------------------------------------ data
@@ -93,6 +97,43 @@ def _record(engine_mod):
     return seen
 
 
+def _node_stream(pkg, engine_mod, hist, rank, kw):
+    """Per-node histograms of one tree level at both widths, issued as a
+    fused async stream and waited in issue order, then the same ones
+    each through a blocking allreduce; with the wire ops (buckets) the
+    engine's fused body ran."""
+    eng = engine_mod.get_engine()
+    real = eng._fused_allreduce_exec
+    buckets = []
+
+    def counted(items, *a, **k):
+        buckets.append(len(items))
+        return real(items, *a, **k)
+    eng._fused_allreduce_exec = counted
+    x, y = gbdt_shard(rank)
+    grad = (0.5 - y).astype(np.float32)
+    hess = np.full(len(y), 0.25, np.float32)
+    node = np.random.default_rng([7, rank]).integers(0, STREAM_NODES, len(y))
+    out = {}
+    for nbin in STREAM_NBINS:
+        cuts = pkg.broadcast(hist.quantile_cuts(x, nbin)
+                             if rank == 0 else None, 0)
+        bins = hist.apply_cuts(x, cuts)
+        rows = [node == j for j in range(STREAM_NODES)]
+        handles = [hist.build_allreduce_async(bins[m], grad[m], hess[m],
+                                              nbin + 1, fuse=True, **kw)
+                   for m in rows]
+        fused = [h.wait() for h in handles]
+        solo = [hist.build_allreduce(bins[m], grad[m], hess[m], nbin + 1,
+                                     **kw) for m in rows]
+        out[nbin] = dict(fused=[np.asarray(f).tolist() for f in fused],
+                         same=all(np.asarray(f).tobytes()
+                                  == np.asarray(s).tobytes()
+                                  for f, s in zip(fused, solo)))
+    eng._fused_allreduce_exec = real
+    return dict(out, buckets=buckets)
+
+
 def _trees(model):
     return [[[n.feature, n.bin_threshold, n.left, n.right,
               bool(n.default_left), float(n.value)] for n in t]
@@ -107,6 +148,7 @@ def _worker(kind, task, ports):
         import rabit_tpu as pkg
         from rabit_tpu import engine as engine_mod
         from rabit_tpu.learn import boosting as gb
+        from rabit_tpu.learn import histogram as hist
         from rabit_tpu.learn import kmeans as km
         from rabit_tpu.learn.data import SparseMat
         from rabit_tpu.ops import kmeans_kernel as kk
@@ -115,6 +157,7 @@ def _worker(kind, task, ports):
         import rabit_tpu_torch as pkg
         from rabit_tpu_torch import engine as engine_mod
         from rabit_tpu_torch.learn import boosting as gb
+        from rabit_tpu_torch.learn import histogram as hist
         from rabit_tpu_torch.learn import kmeans as km
         from rabit_tpu_torch.learn.data import SparseMat
         dev = {"device": "cpu"}
@@ -138,7 +181,7 @@ def _worker(kind, task, ports):
                                 kk.kmeans_ell_stats_fused, interpret=True))]
             else:
                 patched.append((km, "_on_card", lambda device: True))
-        if run != "gbdt":
+        if run in ("dense", "ell_fused"):
             staged = (patched[0][2] if patched else km.prepare_shard)
 
             def stage(*a, staged=staged, **k):
@@ -149,7 +192,10 @@ def _worker(kind, task, ports):
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
         for mod, name, fn in patched:
             setattr(mod, name, fn)
-        if run == "gbdt":
+        if run == "stream":
+            kw = {"use_pallas": False} if kind == "jax" else {}
+            result.update(_node_stream(pkg, engine_mod, hist, rank, kw))
+        elif run == "gbdt":
             x, y = gbdt_shard(rank)
             kw = {"use_pallas": False} if kind == "jax" else dev
             model = gb.train(x, y, num_round=GB_ROUNDS, max_depth=GB_DEPTH,
@@ -273,6 +319,30 @@ def test_gbdt_world3_matches_jax(worlds):
         assert w["trees"] == ref[0]["gbdt"]["trees"]
     # the first tree splits its root on a planted feature
     assert port[0]["gbdt"]["trees"][0][0][0] in (0, 1, 2)
+
+
+def test_gbdt_node_stream_fuses_like_jax(worlds):
+    """Per-node histograms issued with ``fuse=True`` ride fused wire ops
+    on every rank — the narrow ones one concatenated tree op, the wide
+    ones (over the 64 KiB crossover) one segmented ring walk — bit for
+    bit their blocking runs, the same on every rank, and within the
+    float32 bar of the JAX package's stream (whose local builder sums
+    in another order)."""
+    port, ref = worlds["torch"], worlds["jax"]
+    for rank in range(WORLD):
+        g, w = port[rank]["stream"], ref[rank]["stream"]
+        assert g["buckets"] == w["buckets"] == [STREAM_NODES] * 2
+        for nbin in STREAM_NBINS:
+            key = str(nbin)
+            assert g[key]["same"] and w[key]["same"]
+            assert g[key]["fused"] == port[0]["stream"][key]["fused"]
+            np.testing.assert_allclose(g[key]["fused"], w[key]["fused"],
+                                       **F32_TOL)
+            got = np.asarray(g[key]["fused"])
+            assert got.shape == (STREAM_NODES, GB_F, nbin + 1, 2)
+            # every row lands in one node: the hessians add up to 0.25 n
+            assert got[..., 1].sum() == pytest.approx(
+                0.25 * GB_ROWS * GB_F, rel=1e-5)
 
 
 if __name__ == "__main__":
