@@ -136,7 +136,28 @@ Phases, each raising on failure (the script then exits non-zero):
     allreduce time printed beside phase 17's ring.  (c) The last
     iteration's local (64, 257) stats through ``allreduce_custom`` with
     an ``np.add`` reducer: the bits of a forced-tree ``allreduce`` SUM
-    of the same stats, on every rank.
+    of the same stats, on every rank;
+19. (after 18) recovery at world 3 over the port's fault-tolerant
+    ``pyrobust`` engine: the port's ``launch_local.launch(3, ...)``
+    starts three rank processes (this script with ``--phase19-rank``)
+    that join through the tracker URI alone, so the autodetect picks
+    ``pyrobust``, and restarts a rank that dies at a ``RABIT_MOCK``
+    kill-point with ``RABIT_NUM_TRIAL`` one higher; each life loads the
+    kernels phase 2 built and re-stages its third of phase 17's rows.
+    (a) ``kmeans.run`` on the dense16 tier, 3 iterations, rank 1 killed
+    entering iteration 2's stats allreduce and rank 2 at iteration 3's
+    commit: final centroids bit for bit phase 17's on every rank,
+    counts exact against phase 17's oracle, B1 launches by life (3; 1
+    and 2; 3 and 0).  (b) ``boosting.train``, 2 rounds, float32 kernel,
+    rank 0 killed before round 2's third collective: its second life
+    replays seqs 0-1 (``last_op_replayed`` only there) and issues the
+    survivors' version-1 ops and no other; trees and log-loss bit for
+    bit phase 17's float32-kernel run; B3 launches by life against the
+    level chunks.  It prints, for every rank and life, the survivors'
+    time from the LinkError to the resumed op (recover rendezvous,
+    serving, the rest) with the checkpoint bytes served, and the
+    relaunched ranks' times from process start (torch, CUDA, engine
+    init, data, load, staging or binning, first fresh op).
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -486,16 +507,22 @@ def gbdt_data(n, f, seed):
     return x, y
 
 
-def level_chunks(tree, max_depth, chunk):
-    """Histogram launches train() issues for one tree: one for each chunk
-    of ``chunk`` live nodes at every level above ``max_depth``."""
+def level_chunk_list(tree, max_depth, chunk):
+    """Histogram launches train() issues for one tree, level by level:
+    one for each chunk of ``chunk`` live nodes at every level above
+    ``max_depth``."""
     depth, counts = {0: 0}, [0] * max_depth
     for nid, node in enumerate(tree):        # parents precede children
         if depth[nid] < max_depth:
             counts[depth[nid]] += 1
         if node.feature >= 0:
             depth[node.left] = depth[node.right] = depth[nid] + 1
-    return sum(-(-c // chunk) for c in counts)
+    return [-(-c // chunk) for c in counts]
+
+
+def level_chunks(tree, max_depth, chunk):
+    """Histogram launches train() issues for one tree."""
+    return sum(level_chunk_list(tree, max_depth, chunk))
 
 
 def top_levels(tree, levels):
@@ -2196,6 +2223,8 @@ def world3_phase(torch, km, kk):
         gbdt_hist={label: [g["launches"]["gbdt_hist"] for g in ranks]
                    for label, ranks in gb3.items() if label != "plain"},
         oracle_counts=np.asarray(want_counts).tolist(),
+        centroids=cents[0].tolist(), f32_trees=gb3["f32 kernel"][0]["trees"],
+        f32_losses=k32["losses"],
         ring_stats_ms=[[op[1] * 1e3 for op in k["ops"]
                         if op[0] == stats_bytes] for k in km3])
 
@@ -2514,6 +2543,502 @@ def phase18(torch, w3):
     return dict(kmeans_stats_dense=[r["launches"]["kmeans_stats_dense"]
                                     for r in hr],
                 gbdt_hist=[r["launches"] for r in st])
+
+
+# ------------------------------------------------- recovery at world 3
+# Phase 19's kill-points, (rank, version, seqno, life) as RABIT_MOCK
+# takes them; seqno P19_CKPT is the checkpoint() call.
+P19_CKPT = 1 << 20
+P19_RUNS = {
+    # rank 1 entering iteration 2's stats allreduce, rank 2 at iteration
+    # 3's commit
+    "kmeans": ((1, 1, 0, 0), (2, 2, P19_CKPT, 0)),
+    # rank 0 before round 2's third collective (level 2's histograms)
+    "gbdt": ((0, 1, 2, 0),),
+}
+# B1 launches of each rank's lives under those kill-points: rank 1's
+# first life ran iteration 1, its second iterations 2-3; rank 2's first
+# ran all three and died at the last commit, its second loads version 3
+# and runs none
+P19_B1_LIVES = {0: [3], 1: [1, 2], 2: [3, 0]}
+
+
+_STARTED = []      # monotonic clock at this process's start
+
+
+def since_start():
+    """Seconds since this process started: the kernel's start time of
+    the process against its uptime (10 ms ticks) fixes the origin once,
+    on the monotonic clock, which times everything after."""
+    if not _STARTED:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+        _STARTED.append(time.monotonic()
+                        - (up - start / os.sysconf("SC_CLK_TCK")))
+    return time.monotonic() - _STARTED[0]
+
+
+def _recovery_probe(eng, rec, dump):
+    """Record, on the live engine, every collective of this life (kind,
+    version, seqno, bytes, whether replayed, when issued and done),
+    each recovery episode (from the LinkError through the recover
+    rendezvous and the serving rounds to the op that resumed) with the
+    checkpoint bytes served, and ``dump()`` the record before a
+    kill-point ends the process."""
+    real = {name: getattr(eng, name) for name in (
+        "_allreduce_blocking", "_broadcast_blocking", "_rendezvous_recover",
+        "_serve_checkpoint_load", "_serve_result", "_bcast_impl", "_verify",
+        "checkpoint", "load_checkpoint")}
+    ep, serving = {}, [False]
+
+    def close(what, version, seq):
+        if ep:
+            now = since_start()
+            rec["episodes"].append(dict(
+                ep, resumed=now, total=now - ep["t_err"], op=what,
+                version=version, seq=seq))
+            ep.clear()
+
+    def collective(kind, nbytes):
+        def call(*a, **k):
+            version, seq, t0 = eng._version, eng._seq, since_start()
+            out = real[f"_{kind}_blocking"](*a, **k)
+            op = dict(kind=kind, version=version, seq=seq,
+                      nbytes=nbytes(a[0], out),
+                      replayed=eng.last_op_replayed, issued=t0,
+                      done=since_start())
+            if kind == "allreduce" and a[0].ndim == 2:
+                op["counts"] = a[0][:, -1].tolist()
+            rec["ops"].append(op)
+            close(kind, version, seq)
+            return out
+        return call
+
+    def rendezvous_recover():
+        t0 = since_start()
+        if not ep:
+            ep.update(t_err=t0, rendezvous=0.0, serving=0.0,
+                      ckpt_bytes=0, results=0)
+        real["_rendezvous_recover"]()
+        ep["rendezvous"] += since_start() - t0
+
+    def served(name):
+        def call(*a, **k):
+            t0 = since_start()
+            serving[0] = name == "_serve_checkpoint_load"
+            try:
+                return real[name](*a, **k)
+            finally:
+                serving[0] = False
+                where = ep if ep else rec["load_serving"]
+                where["serving"] = where.get("serving", 0.0) \
+                    + since_start() - t0
+                if name == "_serve_result":
+                    where["results"] = where.get("results", 0) + 1
+        return call
+
+    def bcast(data, root):
+        out = real["_bcast_impl"](data, root)
+        if serving[0]:
+            where = ep if ep else rec["load_serving"]
+            where["ckpt_bytes"] = where.get("ckpt_bytes", 0) + len(out)
+        return out
+
+    def verify(seqno):
+        if (eng._version, seqno, eng._num_trial) in eng._kill_points:
+            rec["killed"] = [eng._version, seqno]
+            rec["marks"]["killed"] = since_start()
+            dump()
+        real["_verify"](seqno)
+
+    def checkpoint(*a, **k):
+        version = eng._version
+        real["checkpoint"](*a, **k)
+        close("checkpoint", version, P19_CKPT)
+
+    def load_checkpoint():
+        out = real["load_checkpoint"]()
+        rec["start_version"] = out[0]
+        rec["marks"]["loaded"] = since_start()
+        return out
+
+    eng._allreduce_blocking = collective("allreduce", lambda a, o: a.nbytes)
+    eng._broadcast_blocking = collective("broadcast", lambda a, o: len(o))
+    eng._rendezvous_recover = rendezvous_recover
+    eng._serve_checkpoint_load = served("_serve_checkpoint_load")
+    eng._serve_result = served("_serve_result")
+    eng._bcast_impl = bcast
+    eng._verify = verify
+    eng.checkpoint = checkpoint
+    eng.load_checkpoint = load_checkpoint
+
+
+def phase19_rank(which, out_dir):
+    """One rank process of phase 19 (``chip_smoke.py --phase19-rank
+    WHICH DIR``), started, and restarted after a kill-point, by the
+    port's ``launch_local.launch``.  It joins through the tracker URI
+    the launcher puts in its environment (no ``rabit_engine``: the
+    autodetect picks ``pyrobust``) and runs phase 17's job on its third
+    of phase 17's rows: ``kmeans.run`` on the dense16 tier (B1) or
+    ``boosting.train`` with the float32 kernel (B3).  A life writes its
+    record (collectives, recovery episodes, launches, times since the
+    process started, results) to DIR, also just before its kill-point
+    ends it."""
+    marks = {}
+    import torch
+
+    marks["torch"] = since_start()
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase-19 ranks run on the card")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda"] = since_start()
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import boosting as gb
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import histogram_kernel as hk
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rabit_tpu_torch.init(rabit_timeout_sec=W3_TIMEOUT)
+    marks["init"] = since_start()
+    eng = engine_mod.get_engine()
+    rank = eng.rank
+    trial, relaunch = (int(os.environ[v]) for v in ("RABIT_NUM_TRIAL",
+                                                     "RABIT_RELAUNCH"))
+    rec = dict(which=which, rank=rank, trial=trial, relaunch=relaunch,
+               engine=type(eng).__name__, relaunched=eng.was_relaunched,
+               marks=marks, ops=[], episodes=[], load_serving={},
+               tiers=[], done=False)
+    path = os.path.join(out_dir, f"{which}.{rank}.{trial}.{relaunch}.json")
+
+    def dump():
+        rec["launches"] = dict(kk.LAUNCHES, **hk.LAUNCHES)
+        with open(path, "w") as f:
+            json.dump(rec, f)
+
+    _recovery_probe(eng, rec, dump)
+    if which == "kmeans":
+        data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                               picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+        shard = _shard_rows(data, local_data_slice(rank, W3_RANKS,
+                                                   MAIN_ROWS))
+        del data
+        marks["data"] = since_start()
+        real_prepare = km.prepare_shard
+
+        def dense16(*a, **k):
+            staged = real_prepare(*a, budget=0, **k)   # as phase 17
+            torch.cuda.synchronize()
+            rec["tiers"].append(staged[0])
+            marks["staged"] = since_start()
+            return staged
+        km.prepare_shard = dense16
+        model = km.run(shard, K, W3_KM_ITERS, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        rec["centroids"] = model.centroids.tolist()
+    else:
+        x_all, y_all = gbdt_data(GBDT_ROWS, GBDT_FEATURES, seed=11)
+        s = local_data_slice(rank, W3_RANKS, GBDT_ROWS)
+        x, y = np.ascontiguousarray(x_all[s]), np.ascontiguousarray(y_all[s])
+        del x_all, y_all
+        marks["data"] = since_start()
+        bins, real_apply = [], gb.apply_cuts
+
+        def keep_bins(*a, **k):
+            bins.append(real_apply(*a, **k))
+            marks["staged"] = since_start()
+            return bins[-1]
+        gb.apply_cuts = keep_bins
+        model = gb.train(x, y, num_round=W3_GB_ROUNDS, max_depth=GBDT_DEPTH,
+                         nbin=GBDT_NBIN, **W3_GB_KW["f32 kernel"])
+        torch.cuda.synchronize()
+        losses, _acc, _pred = round_losses(model, bins[0], y)
+        chunk = hk.max_channels(GBDT_NBIN + 1, GBDT_FEATURES) // 2
+        rec.update(rows=len(y), loss_sums=[v * len(y) for v in losses],
+                   trees=[[dataclasses.astuple(n) for n in t]
+                          for t in model.trees],
+                   level_chunks=[level_chunk_list(t, GBDT_DEPTH, chunk)
+                                 for t in model.trees])
+    marks["end"] = since_start()
+    rec["done"] = True
+    dump()
+    rabit_tpu_torch.finalize()
+    return 0
+
+
+def _children_with(marker):
+    """Pids of this process's children whose command line holds
+    ``marker``."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        if ppid == os.getpid() and marker.encode() in cmdline:
+            pids.append(int(d))
+    return pids
+
+
+def _launch_phase19(which, out_dir):
+    """The port's ``launch_local.launch`` of three rank processes with
+    ``which``'s kill-points, bounded: past W3_TIMEOUT its workers are
+    killed (the launcher then returns their code) and the phase fails.
+    Returns (launcher's code, seconds)."""
+    import threading
+
+    from rabit_tpu_torch.tracker.launch_local import launch
+
+    env = {"RABIT_MOCK": ";".join(",".join(map(str, p))
+                                  for p in P19_RUNS[which])}
+    res = {}
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: res.update(code=launch(
+        W3_RANKS, [sys.executable, os.path.abspath(__file__),
+                   "--phase19-rank", which, out_dir], extra_env=env)),
+        daemon=True)
+    th.start()
+    th.join(W3_TIMEOUT)
+    if th.is_alive():
+        for pid in _children_with("--phase19-rank"):
+            os.kill(pid, 9)
+        th.join(60)
+        raise AssertionError(f"phase 19 {which}: the launch did not end "
+                             f"within {W3_TIMEOUT:g} s")
+    return res["code"], time.perf_counter() - t0
+
+
+def _p19_lives(out_dir, which):
+    """{rank: [record of each life, in order]} from the lives' files."""
+    lives = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(which + "."):
+            with open(os.path.join(out_dir, name)) as f:
+                r = json.load(f)
+            lives.setdefault(r["rank"], []).append(r)
+    for recs in lives.values():
+        recs.sort(key=lambda r: (r["trial"], r["relaunch"]))
+    return lives
+
+
+def _p19_times(which, lives):
+    """Phase 19's recovery times, one line a rank and life."""
+    for rank, recs in sorted(lives.items()):
+        for r in recs:
+            m = r["marks"]
+            head = (f"      {which} rank {rank} life {r['trial'] + 1} "
+                    f"(RABIT_NUM_TRIAL {r['trial']}, relaunched "
+                    f"{r['relaunched']})")
+            if r["relaunched"]:
+                fresh = [o for o in r["ops"] if not o["replayed"]]
+                first = (f"its first fresh op ({fresh[0]['kind']} v"
+                         f"{fresh[0]['version']} seq {fresh[0]['seq']}) "
+                         f"issued at {fresh[0]['issued']:.3f} s"
+                         if fresh else "no fresh op: the checkpoint it "
+                         "loaded was the last")
+                ls = r["load_serving"]
+                log(f"{head}: from process start, torch imported "
+                    f"{m['torch']:.3f} s, CUDA ready {m['cuda']:.3f} s, "
+                    f"engine init (rendezvous) {m['init']:.3f} s, data "
+                    f"{m['data']:.3f} s, load_checkpoint (version "
+                    f"{r['start_version']}, {ls.get('ckpt_bytes', 0)} B "
+                    f"served in {ls.get('serving', 0) * 1e3:.3f} ms) "
+                    f"{m['loaded']:.3f} s, "
+                    f"{'staged' if which == 'kmeans' else 'binned'} "
+                    f"{m['staged']:.3f} s; {first}; "
+                    f"{sum(o['replayed'] for o in r['ops'])} op(s) "
+                    f"replayed; done {m.get('end', 0):.3f} s")
+            for e in r["episodes"]:
+                log(f"{head}: LinkError at {e['t_err']:.3f} s -> "
+                    f"{e['op']} v{e['version']} seq {e['seq']} resumed "
+                    f"after {e['total'] * 1e3:.3f} ms = recover "
+                    f"rendezvous {e['rendezvous'] * 1e3:.3f} + serving "
+                    f"{e['serving'] * 1e3:.3f} ms ({e['ckpt_bytes']} B "
+                    f"of checkpoint, {e['results']} cached result(s)) + "
+                    f"the rest {(e['total'] - e['rendezvous'] - e['serving']) * 1e3:.3f} "
+                    f"ms (waiting on the relaunched rank)")
+            if "killed" in r:
+                log(f"{head}: killed at v{r['killed'][0]} seq "
+                    f"{r['killed'][1]} at {m['killed']:.3f} s")
+
+
+def phase19(torch, w3):
+    """Phase 19: k-means and GBDT at world 3 over the port's
+    ``pyrobust`` engine through real rank deaths and relaunches, under
+    the port's keepalive launcher (see ``phase19_rank``).
+
+    (a) ``kmeans.run``, dense16, 3 iterations, rank 1 killed at
+    (version 1, seq 0) and rank 2 at (2, checkpoint): the final
+    centroids bit for bit phase 17's on every rank, counts exact against
+    phase 17's oracle, B1 launches by life as ``P19_B1_LIVES``.
+
+    (b) ``boosting.train``, 2 rounds, the float32 kernel, rank 0 killed
+    at (1, 2).  ``train``'s seqno map (version = rounds committed):
+      version 0: seq 0 = the cuts' broadcast from rank 0, seq 1 = the
+        missing-value vote (MAX, async, ``fuse=False``), seq 2 ... =
+        one level histogram allreduce a depth while the frontier is not
+        empty (depths 0-5), then the leaves' (g, h) sums; checkpoint;
+      version 1: seq 0 ... = the level histograms, then the leaves'
+        sums; checkpoint.
+    A resumed rank skips the cuts' broadcast and the vote (the model
+    carries both), so its version-1 ops must be the survivors' own.
+    Its second life replays seqs 0-1 from the peers' caches
+    (``last_op_replayed`` exactly there) and joins seq 2 fresh; trees
+    node for node and log-loss bit for bit phase 17's float32-kernel
+    run; B3 launches by life against the level chunks.
+
+    Returns B1's and B3's launches by rank and life."""
+    log(f"[19] recovery at world {W3_RANKS} over the port's pyrobust "
+        f"engine: launch_local.launch({W3_RANKS}, ...) with kill-points; "
+        f"k-means dense16 {MAIN_ROWS} x 256, {W3_KM_ITERS} iterations, "
+        f"RABIT_MOCK {P19_RUNS['kmeans']}; boosting.train {GBDT_ROWS} x "
+        f"{GBDT_FEATURES}, {W3_GB_ROUNDS} rounds, float32 kernel, "
+        f"RABIT_MOCK {P19_RUNS['gbdt']}")
+    from rabit_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = [_build.library_path(n) for n in ("kmeans_stats_dense",
+                                             "histogram")]
+    stamps = [p.stat().st_mtime_ns for p in libs]
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in P19_RUNS:
+            code, secs = _launch_phase19(which, tmp)
+            lives = _p19_lives(tmp, which)
+            if code != 0:
+                raise AssertionError(f"phase 19 {which}: the launcher "
+                                     f"returned {code}")
+            want = {r: 1 + sum(p[0] == r for p in P19_RUNS[which])
+                    for r in range(W3_RANKS)}
+            got = {r: len(lives.get(r, [])) for r in range(W3_RANKS)}
+            if got != want:
+                raise AssertionError(f"phase 19 {which}: lives by rank "
+                                     f"{got}, kill-points give {want}")
+            for rank, recs in lives.items():
+                for i, r in enumerate(recs):
+                    last = i == len(recs) - 1
+                    kill = [p for p in P19_RUNS[which] if p[0] == rank
+                            and p[3] == r["trial"]]
+                    if (r["engine"] != "PyRobustEngine" or r["done"] != last
+                            or r["relaunched"] != (i > 0)
+                            or r.get("killed") != (
+                                list(kill[0][1:3]) if kill else None)):
+                        raise AssertionError(
+                            f"phase 19 {which} rank {rank} life {i + 1}: "
+                            f"engine {r['engine']}, done {r['done']}, "
+                            f"relaunched {r['relaunched']}, killed "
+                            f"{r.get('killed')} for kill-points {kill}")
+            result[which] = dict(lives=lives, seconds=secs)
+            log(f"    {which}: launcher returned 0 in {secs:.1f} s; lives "
+                f"by rank {[got[r] for r in range(W3_RANKS)]}")
+    if [p.stat().st_mtime_ns for p in libs] != stamps:
+        raise AssertionError("phase 19: a rank process rebuilt a kernel")
+
+    # (a) k-means
+    lives = result["kmeans"]["lives"]
+    want_cent = np.asarray(w3["centroids"], np.float32)
+    oracle = np.asarray(w3["oracle_counts"])
+    b1 = {}
+    for rank, recs in sorted(lives.items()):
+        final = recs[-1]
+        cent = np.asarray(final["centroids"], np.float32)
+        if not np.array_equal(cent, want_cent):
+            raise AssertionError(
+                f"phase 19 k-means rank {rank}: final centroids off phase "
+                f"17's by {float(np.abs(cent - want_cent).max())}")
+        for r in recs:
+            for op in (o for o in r["ops"] if "counts" in o):
+                if op["counts"] != oracle[op["version"]].tolist():
+                    raise AssertionError(
+                        f"phase 19 k-means rank {rank} life "
+                        f"{r['trial'] + 1}: counts at version "
+                        f"{op['version']} off the oracle's")
+            if r["done"] and r["tiers"] != ["dense16"]:
+                raise AssertionError(f"phase 19 k-means rank {rank}: "
+                                     f"staged {r['tiers']}")
+        b1[rank] = [r["launches"]["kmeans_stats_dense"] for r in recs]
+        if b1[rank] != P19_B1_LIVES[rank] or any(
+                r["launches"]["kmeans_stats_ell"] for r in recs):
+            raise AssertionError(f"phase 19 k-means rank {rank}: B1 "
+                                 f"launches by life {b1[rank]}, want "
+                                 f"{P19_B1_LIVES[rank]}")
+    starts = {rank: [r.get("start_version") for r in recs]
+              for rank, recs in lives.items()}
+    if starts != {0: [0], 1: [0, 1], 2: [0, 3]}:
+        raise AssertionError(f"phase 19 k-means: checkpoints loaded by "
+                             f"rank and life {starts}")
+    log(f"    k-means: final centroids on every rank bit for bit phase "
+        f"17's; counts of every iteration each life ran equal the "
+        f"oracle's; B1 launches by rank and life "
+        f"{[b1[r] for r in range(W3_RANKS)]}; versions loaded "
+        f"{[starts[r] for r in range(W3_RANKS)]}")
+    _p19_times("kmeans", lives)
+
+    # (b) GBDT
+    lives = result["gbdt"]["lives"]
+    dead = P19_RUNS["gbdt"][0][0]
+    finals = [lives[r][-1] for r in range(W3_RANKS)]
+    trees = finals[0]["trees"]
+    if any(f["trees"] != trees for f in finals) or \
+            trees != w3["f32_trees"]:
+        raise AssertionError("phase 19 GBDT: the trees differ from phase "
+                             "17's float32-kernel trees")
+    n = sum(f["rows"] for f in finals)
+    losses = [sum(f["loss_sums"][i] for f in finals) / n
+              for i in range(W3_GB_ROUNDS)]
+    if losses != w3["f32_losses"]:
+        raise AssertionError(f"phase 19 GBDT: log-loss {losses} vs phase "
+                             f"17's {w3['f32_losses']}")
+    second = lives[dead][1]
+
+    def seq_map(recs, version):
+        return [(o["kind"], o["seq"], o["nbytes"]) for r in recs
+                for o in r["ops"] if o["version"] == version]
+    survivor = next(r for r in range(W3_RANKS) if r != dead)
+    if seq_map([second], 0) or seq_map([second], 1) != seq_map(
+            lives[survivor], 1):
+        raise AssertionError(
+            f"phase 19 GBDT: the relaunched rank's ops {seq_map([second], 0)}"
+            f" at version 0 and {seq_map([second], 1)} at version 1, the "
+            f"survivors' {seq_map(lives[survivor], 1)}")
+    replayed = [(o["version"], o["seq"]) for o in second["ops"]
+                if o["replayed"]]
+    if replayed != [(1, 0), (1, 1)] or any(
+            o["replayed"] for r in range(W3_RANKS) for life in lives[r]
+            if life is not second for o in life["ops"]):
+        raise AssertionError(f"phase 19 GBDT: replayed ops {replayed}")
+    chunks = finals[0]["level_chunks"]
+    b3 = {r: [life["launches"]["gbdt_hist"] for life in lives[r]]
+          for r in range(W3_RANKS)}
+    died_at = P19_RUNS["gbdt"][0][2]
+    want_b3 = {r: [sum(map(sum, chunks))] for r in range(W3_RANKS)}
+    want_b3[dead] = [sum(chunks[0]) + sum(chunks[1][:died_at + 1]),
+                     sum(chunks[1])]
+    if b3 != want_b3 or any(life["launches"]["kmeans_stats_dense"]
+                            for recs in lives.values() for life in recs):
+        raise AssertionError(f"phase 19 GBDT: B3 launches by rank and life "
+                             f"{b3}, level chunks give {want_b3}")
+    log(f"    GBDT: trees node for node and log-loss "
+        f"{[round(v, 6) for v in losses]} bit for bit phase 17's float32 "
+        f"kernel; the relaunched rank {dead} replayed {replayed} "
+        f"(last_op_replayed there only) and issued the survivors' "
+        f"version-1 ops, no cuts broadcast; B3 launches by rank and life "
+        f"{[b3[r] for r in range(W3_RANKS)]} (level chunks {chunks})")
+    _p19_times("gbdt", lives)
+    log(f"    phase 19 wall {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans_stats_dense=[b1[r] for r in range(W3_RANKS)],
+                gbdt_hist=[b3[r] for r in range(W3_RANKS)])
 
 
 def main() -> int:
@@ -2973,6 +3498,14 @@ def main() -> int:
         if line["name"] in p18:
             line["phase18_launches_by_rank"] = p18[line["name"]]
     log(f"    phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # 19. recovery at world 3: the pyrobust engine under the launcher
+    t0 = time.perf_counter()
+    p19 = phase19(torch, w3)
+    for line in lines:
+        if line["name"] in p19:
+            line["phase19_launches_by_rank_and_life"] = p19[line["name"]]
+    log(f"    phase 19 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -2988,4 +3521,6 @@ if __name__ == "__main__":
         sys.exit(world3_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     if sys.argv[1:2] == ["--phase18-rank"]:
         sys.exit(phase18_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
+    if sys.argv[1:2] == ["--phase19-rank"]:
+        sys.exit(phase19_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

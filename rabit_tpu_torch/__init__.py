@@ -5,9 +5,12 @@ It imports ``torch`` and ``numpy`` and nothing of the JAX package; the
 hot k-means statistics pass and the GBDT gradient histograms run as
 hand-written CUDA kernels for the H100 (``ops/csrc``).  Entry points run
 on the card unless the caller asks for the CPU.  Ported so far: the
-world-of-one ``empty`` engine and the ``pysocket`` engine
+world-of-one ``empty`` engine, the ``pysocket`` engine
 (:mod:`rabit_tpu_torch.engine.pysocket`: the collectives, the async
-pump with bucket fusion, custom reductions), the API, k-means
+pump with bucket fusion, custom reductions) and the fault-tolerant
+``pyrobust`` engine over it (:mod:`rabit_tpu_torch.engine.robust`,
+with the keepalive launcher :mod:`rabit_tpu_torch.tracker.launch_local`),
+the API, k-means
 (:mod:`rabit_tpu_torch.learn.kmeans`), gradient-boosted trees
 (:mod:`rabit_tpu_torch.learn.boosting`), and the wire the engine rides:
 the tracker protocol and rendezvous (:mod:`rabit_tpu_torch.tracker`),
@@ -40,6 +43,7 @@ from rabit_tpu_torch.api import (
 )
 from rabit_tpu_torch.engine.interface import AsyncOrderError, CollectiveHandle
 from rabit_tpu_torch.engine.pysocket import AsyncPumpError
+from rabit_tpu_torch.engine.robust import RecoveryError
 from rabit_tpu_torch.ops import (BITAND, BITOR, BITXOR, MAX, MIN, PROD, SUM,
                                  ReduceOp)
 from rabit_tpu_torch.utils import RabitError, Serializable
@@ -52,7 +56,7 @@ __all__ = [
     "allreduce_async", "allreduce_custom", "allreduce_many", "allgather",
     "allgather_async", "broadcast", "load_checkpoint", "checkpoint",
     "lazy_checkpoint", "version_number", "device_epoch",
-    "AsyncOrderError", "AsyncPumpError", "CollectiveHandle",
+    "AsyncOrderError", "AsyncPumpError", "RecoveryError", "CollectiveHandle",
     "MAX", "MIN", "SUM", "PROD", "BITOR", "BITAND", "BITXOR", "ReduceOp",
     "Serializable", "RabitError", "__version__",
 ]

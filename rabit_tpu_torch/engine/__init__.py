@@ -1,13 +1,13 @@
 """Engine layer (counterpart of :mod:`rabit_tpu.engine`).
 
-Ported so far: ``empty`` (world of one) and ``pysocket`` (pure-Python
-TCP, non-fault-tolerant).  Every other engine name raises
+Ported so far: ``empty`` (world of one), ``pysocket`` (pure-Python
+TCP, non-fault-tolerant) and ``pyrobust`` (the same links with
+checkpoint/replay recovery).  Every other engine name raises
 :class:`NotImplementedError` rather than running on a different engine
-than the one asked for.  So does the tracker-URI autodetect: the
-reference picks a fault-tolerant engine there (native, else pyrobust),
-so that fault tolerance never silently disappears, and the port will
-not quietly run ``pysocket`` in its place.  Until pyrobust lands
-(ROADMAP A4), callers name ``rabit_engine=pysocket``.
+than the one asked for.  With no engine named, a tracker URI selects
+``pyrobust``, as the reference does when its native library is absent,
+so that fault tolerance never silently disappears (the native engines
+are not ported, ROADMAP A8); otherwise ``empty``.
 """
 from __future__ import annotations
 
@@ -33,15 +33,19 @@ def _make_engine(name: str) -> Engine:
         from rabit_tpu_torch.engine.pysocket import PySocketEngine
 
         return PySocketEngine()
+    if name == "pyrobust":
+        from rabit_tpu_torch.engine.robust import PyRobustEngine
+
+        return PyRobustEngine()
     raise _not_ported(name)
 
 
 def _autodetect(params: dict) -> str:
-    """No engine named: a configured tracker selects a fault-tolerant
-    engine in the reference (not ported yet, ROADMAP A4), otherwise
-    ``empty``."""
+    """No engine named: a configured tracker selects the fault-tolerant
+    ``pyrobust`` (the reference's pick without its native library),
+    otherwise ``empty``."""
     if "rabit_tracker_uri" in params or "RABIT_TRACKER_URI" in os.environ:
-        raise _not_ported("pyrobust")
+        return "pyrobust"
     return "empty"
 
 

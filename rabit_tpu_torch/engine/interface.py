@@ -112,6 +112,14 @@ class Engine(ABC):
     def is_distributed(self) -> bool:
         return self.world_size > 1
 
+    @property
+    def last_op_replayed(self) -> bool:
+        """True iff the LAST collective's result was served from the
+        fault-tolerance replay cache (the op completed before this
+        relaunched rank joined).  Always False for engines without
+        replay; the robust engine overrides this."""
+        return False
+
     @abstractmethod
     def allreduce(self, buf, op: ReduceOp,
                   prepare_fun: Optional[Callable[[], None]] = None):

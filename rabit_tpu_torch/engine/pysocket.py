@@ -29,7 +29,8 @@ Payloads are numpy arrays, as the reference engine moves numpy; a
 ROADMAP A5).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
-heartbeats (A3b); the robust layer and elastic rescale (A4);
+heartbeats (A3b); elastic rescale (A4b; the robust layer is
+:mod:`rabit_tpu_torch.engine.robust`);
 shared-memory links, the tuning cache and the ``auto``, ``swing`` and
 ``synth`` schedules, wire codecs, chaos injection, telemetry and
 tracing (the reference's ``async.*`` instruments among them), the
@@ -1309,7 +1310,7 @@ class PySocketEngine(Engine):
         blocking path).  The reference's ``WorldChangedError`` branch
         (drain the queue, realign the wait cursor, keep the pump alive
         for a rescaled world) comes with elastic membership, ROADMAP
-        A4."""
+        A4b."""
         log("async collective failed in the progress thread: %s: %s",
             type(exc).__name__, exc)
         for h in handles:
@@ -1453,8 +1454,8 @@ class PySocketEngine(Engine):
     def _fused_allreduce_exec(self, items: list, op: ReduceOp) -> None:
         """Runs ON the progress thread: one wire op for a whole bucket
         of small same-op/same-dtype allreduces.  The robust engine
-        (ROADMAP A4) overrides this with its consensus/cache/replay
-        protocol (one seqno per bucket)."""
+        (:mod:`rabit_tpu_torch.engine.robust`) overrides this with its
+        consensus/cache/replay protocol (one seqno per bucket)."""
         for _flat, _buf, prep, _h in items:
             if prep is not None:
                 prep()
@@ -1518,7 +1519,7 @@ class PySocketEngine(Engine):
 
     # ------------------------------------------------------------------
     # checkpoints (non-fault-tolerant: process-local, like the reference
-    # base engine — the robust layer adds replication/recovery, A4)
+    # base engine — engine/robust.py adds replication and recovery)
     # ------------------------------------------------------------------
     def load_checkpoint(self):
         self._fence()

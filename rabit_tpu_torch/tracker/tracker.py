@@ -23,9 +23,9 @@ As in the reference:
   with its own :class:`JobState`.
 
 Not ported yet, each with its ROADMAP item: the heartbeat channel, the
-registrant sweep and the stall watchdog (A3); elastic membership
+registrant sweep and the stall watchdog (A3b); elastic membership
 (``rescale``/``epoch``), the durable journal and the formation barrier
-(A4); the XLA coordinator service (``jaxsvc``, A5); obs telemetry, the
+(A4b); the XLA coordinator service (``jaxsvc``, A5); obs telemetry, the
 adaptive controller, admission limits, HTTP and the CLI (A8).  A command
 of those (``rescale``, ``epoch``, ``heartbeat``, ``formbar``,
 ``jaxsvc``) gets the reference's treatment of an unknown command: the

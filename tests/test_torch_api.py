@@ -75,7 +75,8 @@ def test_allreduce_async_is_a_resolved_identity(engines):
 
 @pytest.mark.parametrize("name", [
     "allgather_async", "allreduce_many", "allreduce_custom",
-    "lazy_checkpoint", "AsyncOrderError", "AsyncPumpError"])
+    "lazy_checkpoint", "AsyncOrderError", "AsyncPumpError",
+    "RecoveryError"])
 def test_api_names_match_jax(name):
     """The async, custom-reduction and lazy-checkpoint names of the JAX
     package's API are the port's too, exported alike."""
@@ -164,7 +165,7 @@ def test_serialization_tags_match_jax(engines):
 
 
 # ------------------------------------------------------------ engines
-@pytest.mark.parametrize("name", ["pyrobust", "native", "xla",
+@pytest.mark.parametrize("name", ["robust", "native", "xla",
                                   "mock", "mpi", "bogus"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError,
@@ -174,9 +175,30 @@ def test_unported_engines_raise(name):
 
 
 def test_tracker_autodetect_raises(monkeypatch):
+    """A tracker URI and no engine name run the fault-tolerant pyrobust
+    engine, as the reference picks it without its native library (the
+    name is kept from when the port refused here)."""
+    from rabit_tpu_torch.engine.robust import PyRobustEngine
+    from rabit_tpu_torch.tracker.tracker import Tracker
+
+    trk = Tracker(1, "127.0.0.1", 0)
+    trk.start()
     monkeypatch.setenv("RABIT_TRACKER_URI", "127.0.0.1")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    monkeypatch.setenv("RABIT_TRACKER_PORT", str(trk.port))
+    try:
         rabit_tpu_torch.init()
+        try:
+            eng = rabit_tpu_torch.engine.get_engine()
+            assert type(eng) is PyRobustEngine
+            assert (eng.rank, eng.world_size) == (0, 1)
+            assert rabit_tpu_torch.allreduce(np.arange(3.0)).tolist() == [
+                0.0, 1.0, 2.0]
+            assert not eng.last_op_replayed
+        finally:
+            rabit_tpu_torch.finalize()
+        trk.join(10)
+    finally:
+        trk.stop()
     assert not rabit_tpu_torch.initialized()
 
 
@@ -300,6 +322,8 @@ def test_port_imports_no_jax_and_nothing_of_rabit_tpu():
                 "rabit_tpu_torch.transport.factory",
                 "rabit_tpu_torch.sched.topo", "rabit_tpu_torch.sched.tuner",
                 "rabit_tpu_torch.engine.pysocket",
+                "rabit_tpu_torch.engine.robust",
+                "rabit_tpu_torch.tracker.launch_local",
                 "rabit_tpu_torch.transport.pump",
                 "rabit_tpu_torch.sched.base", "rabit_tpu_torch.sched.tree",
                 "rabit_tpu_torch.sched.ring", "rabit_tpu_torch.sched.halving",

@@ -510,10 +510,18 @@ def test_checkpoint_state_matches_reference():
 
 
 def test_make_engine_builds_pysocket_and_autodetect_still_raises(monkeypatch):
-    assert isinstance(engine_mod._make_engine("pysocket"), PySocketEngine)
+    """``pysocket`` is built by name; a tracker URI with no engine name
+    picks ``pyrobust`` (the name is kept from when the port refused
+    there), and no tracker picks ``empty``."""
+    from rabit_tpu_torch.engine.robust import PyRobustEngine
+
+    assert type(engine_mod._make_engine("pysocket")) is PySocketEngine
+    assert type(engine_mod._make_engine("pyrobust")) is PyRobustEngine
+    monkeypatch.delenv("RABIT_TRACKER_URI", raising=False)
+    assert engine_mod._autodetect({}) == "empty"
+    assert engine_mod._autodetect({"rabit_tracker_uri": "h"}) == "pyrobust"
     monkeypatch.setenv("RABIT_TRACKER_URI", "127.0.0.1")
-    with pytest.raises(NotImplementedError, match="pyrobust"):
-        engine_mod._autodetect({})
+    assert engine_mod._autodetect({}) == "pyrobust"
 
 
 @pytest.mark.parametrize("raw", ["256MB", "64KB", "1.5M", " 2 g ", "7b", 4096,
