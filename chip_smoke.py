@@ -159,6 +159,27 @@ Phases, each raising on failure (the script then exits non-zero):
     relaunched ranks' times from process start (torch, CUDA, engine
     init, data, load, staging or binning, first fresh op).
 
+20. (after 19) liveness at world 3 over ``pyrobust``: the port's
+    ``launch_local.launch(3, ...)`` again (this script with
+    ``--phase20-rank``), where a rank hangs once (it sends itself
+    SIGSTOP at a kill-point check, behind a marker file) with its
+    sockets open.  (a) ``kmeans.run`` on the dense16 tier, 3
+    iterations, ``heartbeat_sec=0.5`` and the engine's default 600 s
+    link timeout, rank 1 stopping entering iteration 2's stats
+    allreduce: the tracker's heartbeat verdict makes the launcher kill
+    it.  (b) ``boosting.train``, 2 rounds, float32 kernel,
+    ``watchdog_sec=10``, no heartbeat, ``RABIT_TIMEOUT_SEC`` three times
+    phase 17's longest wait in one collective (30 s at least), rank 0
+    stopping before round 2's third collective: the survivors' link
+    timeout sends them to the recover round, which the stall watchdog
+    finds short of the stopped rank.  Either hang costs exactly one
+    kill and one extra life with the same ``RABIT_NUM_TRIAL``;
+    centroids, trees and log-loss bit for bit phase 17's; B1 launches
+    by life (3; 1 and 2; 3), B3's against the level chunks; the GBDT
+    relaunch replays seqs 0-1 as in phase 19.  It prints the stop ->
+    verdict or stall -> kill -> relaunched life's first op times and
+    each survivor's LinkError -> resumed op.
+
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
 (``{"kernels": [...]}``), and ``{"ok": true, "device": {...}}``.
@@ -175,6 +196,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2225,6 +2247,13 @@ def world3_phase(torch, km, kk):
         oracle_counts=np.asarray(want_counts).tolist(),
         centroids=cents[0].tolist(), f32_trees=gb3["f32 kernel"][0]["trees"],
         f32_losses=k32["losses"],
+        # the longest one rank waited in one collective of the float32
+        # kernel's train(): its longest allreduce, or all its broadcast
+        # time (the cuts' broadcast, timed apart from the allreduces)
+        f32_longest_wait=max(max(max(op[1] for op in g["ops"]),
+                                 g["split"]["wire"]
+                                 - sum(op[1] for op in g["ops"]))
+                             for g in gb3["f32 kernel"]),
         ring_stats_ms=[[op[1] * 1e3 for op in k["ops"]
                         if op[0] == stats_bytes] for k in km3])
 
@@ -2563,6 +2592,32 @@ P19_RUNS = {
 P19_B1_LIVES = {0: [3], 1: [1, 2], 2: [3, 0]}
 
 
+# Phase 20's hangs, (rank, version, seqno): the rank sends itself SIGSTOP
+# there once (a marker file in the lives' directory keeps its next life,
+# started with the same RABIT_NUM_TRIAL, from stopping again).  k-means'
+# rank 1 entering iteration 2's stats allreduce is found by the
+# heartbeat (0.5 s, a miss budget of 3), GBDT's rank 0 before round 2's
+# third collective by the stall watchdog once the survivors' link
+# timeout sends them to the recover round.
+P20_RUNS = {"kmeans": (1, 1, 0), "gbdt": (0, 1, 2)}
+P20_HEARTBEAT_SEC = 0.5
+# The watchdog rearms every period while the recover round waits for the
+# relaunched rank, and the stall killer spares a life only for its first
+# period, so a relaunch must register within about two periods.  Here a
+# rank registers 8-10 s after its process starts (torch's import), which
+# 5 s periods would leave no margin for: 10 s.
+P20_WATCHDOG_SEC = 10.0
+# The survivors' link timeout in (b): at least this many times the
+# longest wait in one collective of phase 17's float32-kernel run, and
+# never under P20_TIMEOUT_MIN seconds.
+P20_TIMEOUT_WAITS, P20_TIMEOUT_MIN = 3, 30
+# B1 launches by life: the stop comes at the allreduce's kill-point
+# check, before prepare_fun fills the stats (engine/robust.py
+# _allreduce_blocking), so rank 1's first life ran iteration 1 and its
+# second, loading version 1, iterations 2-3
+P20_B1_LIVES = {0: [3], 1: [1, 2], 2: [3]}
+
+
 _STARTED = []      # monotonic clock at this process's start
 
 
@@ -2580,13 +2635,15 @@ def since_start():
     return time.monotonic() - _STARTED[0]
 
 
-def _recovery_probe(eng, rec, dump):
+def _recovery_probe(eng, rec, dump, stop=None):
     """Record, on the live engine, every collective of this life (kind,
     version, seqno, bytes, whether replayed, when issued and done),
     each recovery episode (from the LinkError through the recover
     rendezvous and the serving rounds to the op that resumed) with the
     checkpoint bytes served, and ``dump()`` the record before a
-    kill-point ends the process."""
+    kill-point ends the process.  ``stop`` (rank, version, seqno,
+    marker): at that kill-point check, unless the marker file exists,
+    make it, dump the record and send this process SIGSTOP."""
     real = {name: getattr(eng, name) for name in (
         "_allreduce_blocking", "_broadcast_blocking", "_rendezvous_recover",
         "_serve_checkpoint_load", "_serve_result", "_bcast_impl", "_verify",
@@ -2647,6 +2704,13 @@ def _recovery_probe(eng, rec, dump):
         return out
 
     def verify(seqno):
+        if stop is not None and (eng._rank, eng._version, seqno) == \
+                tuple(stop[:3]) and not os.path.exists(stop[3]):
+            open(stop[3], "w").close()
+            rec["stopped"] = [eng._version, seqno]
+            rec["marks"]["stopped"] = since_start()
+            dump()
+            os.kill(os.getpid(), signal.SIGSTOP)   # hung until killed
         if (eng._version, seqno, eng._num_trial) in eng._kill_points:
             rec["killed"] = [eng._version, seqno]
             rec["marks"]["killed"] = since_start()
@@ -2675,17 +2739,20 @@ def _recovery_probe(eng, rec, dump):
     eng.load_checkpoint = load_checkpoint
 
 
-def phase19_rank(which, out_dir):
-    """One rank process of phase 19 (``chip_smoke.py --phase19-rank
-    WHICH DIR``), started, and restarted after a kill-point, by the
-    port's ``launch_local.launch``.  It joins through the tracker URI
-    the launcher puts in its environment (no ``rabit_engine``: the
-    autodetect picks ``pyrobust``) and runs phase 17's job on its third
-    of phase 17's rows: ``kmeans.run`` on the dense16 tier (B1) or
-    ``boosting.train`` with the float32 kernel (B3).  A life writes its
-    record (collectives, recovery episodes, launches, times since the
-    process started, results) to DIR, also just before its kill-point
-    ends it."""
+def robust_rank(phase, which, out_dir):
+    """One rank process of phase 19 or 20 (``chip_smoke.py
+    --phase19-rank|--phase20-rank WHICH DIR``), started, and restarted
+    after a kill-point or a kill, by the port's ``launch_local.launch``.
+    It joins through the tracker URI the launcher puts in its
+    environment (no ``rabit_engine``: the autodetect picks ``pyrobust``)
+    and runs phase 17's job on its third of phase 17's rows:
+    ``kmeans.run`` on the dense16 tier (B1) or ``boosting.train`` with
+    the float32 kernel (B3).  A life writes its record (collectives,
+    recovery episodes, launches, times since the process started and
+    that origin on the monotonic clock, results) to DIR, also just
+    before its kill-point ends it or its phase-20 stop hangs it.  Phase
+    19 bounds the links at W3_TIMEOUT; phase 20 leaves the timeout to
+    the engine's default or ``RABIT_TIMEOUT_SEC``."""
     marks = {}
     import torch
 
@@ -2705,7 +2772,8 @@ def phase19_rank(which, out_dir):
     from rabit_tpu_torch.parallel.mesh import local_data_slice
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rabit_tpu_torch.init(rabit_timeout_sec=W3_TIMEOUT)
+    rabit_tpu_torch.init(**({"rabit_timeout_sec": W3_TIMEOUT}
+                            if phase == "19" else {}))
     marks["init"] = since_start()
     eng = engine_mod.get_engine()
     rank = eng.rank
@@ -2714,7 +2782,7 @@ def phase19_rank(which, out_dir):
     rec = dict(which=which, rank=rank, trial=trial, relaunch=relaunch,
                engine=type(eng).__name__, relaunched=eng.was_relaunched,
                marks=marks, ops=[], episodes=[], load_serving={},
-               tiers=[], done=False)
+               tiers=[], done=False, t0=_STARTED[0], pid=os.getpid())
     path = os.path.join(out_dir, f"{which}.{rank}.{trial}.{relaunch}.json")
 
     def dump():
@@ -2722,7 +2790,10 @@ def phase19_rank(which, out_dir):
         with open(path, "w") as f:
             json.dump(rec, f)
 
-    _recovery_probe(eng, rec, dump)
+    stop = None
+    if phase == "20":
+        stop = P20_RUNS[which] + (os.path.join(out_dir, "stopped." + which),)
+    _recovery_probe(eng, rec, dump, stop)
     if which == "kmeans":
         data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
                                picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
@@ -2791,35 +2862,33 @@ def _children_with(marker):
     return pids
 
 
-def _launch_phase19(which, out_dir):
-    """The port's ``launch_local.launch`` of three rank processes with
-    ``which``'s kill-points, bounded: past W3_TIMEOUT its workers are
-    killed (the launcher then returns their code) and the phase fails.
-    Returns (launcher's code, seconds)."""
+def _launch_ranks(phase, which, out_dir, **kw):
+    """The port's ``launch_local.launch`` of three rank processes of
+    phase 19 or 20 (``kw`` as ``launch`` takes it), bounded: past
+    W3_TIMEOUT its workers are killed (the launcher then returns their
+    code) and the phase fails.  Returns (launcher's code, seconds)."""
     import threading
 
     from rabit_tpu_torch.tracker.launch_local import launch
 
-    env = {"RABIT_MOCK": ";".join(",".join(map(str, p))
-                                  for p in P19_RUNS[which])}
+    flag = f"--phase{phase}-rank"
     res = {}
     t0 = time.perf_counter()
     th = threading.Thread(target=lambda: res.update(code=launch(
-        W3_RANKS, [sys.executable, os.path.abspath(__file__),
-                   "--phase19-rank", which, out_dir], extra_env=env)),
-        daemon=True)
+        W3_RANKS, [sys.executable, os.path.abspath(__file__), flag, which,
+                   out_dir], **kw)), daemon=True)
     th.start()
     th.join(W3_TIMEOUT)
     if th.is_alive():
-        for pid in _children_with("--phase19-rank"):
-            os.kill(pid, 9)
+        for pid in _children_with(flag):
+            os.kill(pid, signal.SIGKILL)
         th.join(60)
-        raise AssertionError(f"phase 19 {which}: the launch did not end "
-                             f"within {W3_TIMEOUT:g} s")
+        raise AssertionError(f"phase {phase} {which}: the launch did not "
+                             f"end within {W3_TIMEOUT:g} s")
     return res["code"], time.perf_counter() - t0
 
 
-def _p19_lives(out_dir, which):
+def _rank_lives(out_dir, which):
     """{rank: [record of each life, in order]} from the lives' files."""
     lives = {}
     for name in sorted(os.listdir(out_dir)):
@@ -2832,8 +2901,8 @@ def _p19_lives(out_dir, which):
     return lives
 
 
-def _p19_times(which, lives):
-    """Phase 19's recovery times, one line a rank and life."""
+def _recovery_times(which, lives):
+    """Phase 19's or 20's recovery times, one line a rank and life."""
     for rank, recs in sorted(lives.items()):
         for r in recs:
             m = r["marks"]
@@ -2871,12 +2940,15 @@ def _p19_times(which, lives):
             if "killed" in r:
                 log(f"{head}: killed at v{r['killed'][0]} seq "
                     f"{r['killed'][1]} at {m['killed']:.3f} s")
+            if "stopped" in r:
+                log(f"{head}: stopped (SIGSTOP) at v{r['stopped'][0]} seq "
+                    f"{r['stopped'][1]} at {m['stopped']:.3f} s")
 
 
 def phase19(torch, w3):
     """Phase 19: k-means and GBDT at world 3 over the port's
     ``pyrobust`` engine through real rank deaths and relaunches, under
-    the port's keepalive launcher (see ``phase19_rank``).
+    the port's keepalive launcher (see ``robust_rank``).
 
     (a) ``kmeans.run``, dense16, 3 iterations, rank 1 killed at
     (version 1, seq 0) and rank 2 at (2, checkpoint): the final
@@ -2914,8 +2986,10 @@ def phase19(torch, w3):
     result = {}
     with tempfile.TemporaryDirectory() as tmp:
         for which in P19_RUNS:
-            code, secs = _launch_phase19(which, tmp)
-            lives = _p19_lives(tmp, which)
+            code, secs = _launch_ranks("19", which, tmp, extra_env={
+                "RABIT_MOCK": ";".join(",".join(map(str, p))
+                                       for p in P19_RUNS[which])})
+            lives = _rank_lives(tmp, which)
             if code != 0:
                 raise AssertionError(f"phase 19 {which}: the launcher "
                                      f"returned {code}")
@@ -2983,7 +3057,7 @@ def phase19(torch, w3):
         f"oracle's; B1 launches by rank and life "
         f"{[b1[r] for r in range(W3_RANKS)]}; versions loaded "
         f"{[starts[r] for r in range(W3_RANKS)]}")
-    _p19_times("kmeans", lives)
+    _recovery_times("kmeans", lives)
 
     # (b) GBDT
     lives = result["gbdt"]["lives"]
@@ -3035,10 +3109,279 @@ def phase19(torch, w3):
         f"(last_op_replayed there only) and issued the survivors' "
         f"version-1 ops, no cuts broadcast; B3 launches by rank and life "
         f"{[b3[r] for r in range(W3_RANKS)]} (level chunks {chunks})")
-    _p19_times("gbdt", lives)
+    _recovery_times("gbdt", lives)
     log(f"    phase 19 wall {time.perf_counter() - t0:.1f} s")
     return dict(kmeans_stats_dense=[b1[r] for r in range(W3_RANKS)],
                 gbdt_hist=[b3[r] for r in range(W3_RANKS)])
+
+
+class _KillLog:
+    """Times, on the monotonic clock, of the port launcher's hung-rank
+    decisions during one launch: each heartbeat verdict its ``on_dead``
+    gets, each stall its ``on_stall`` gets, and each worker it kills
+    (``Popen.kill``, which only those two call)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from rabit_tpu_torch.tracker import launch_local as ll
+
+        self._ll = ll
+        self._real = (ll.make_dead_killer, ll.make_stall_killer,
+                      subprocess.Popen.kill)
+        real_dead, real_stall, real_kill = self._real
+        events = self.events
+
+        def dead_killer(*a, **k):
+            fn = real_dead(*a, **k)
+
+            def on_dead(task):
+                events.append(("verdict", time.monotonic(), task))
+                fn(task)
+            return on_dead
+
+        def stall_killer(*a, **k):
+            fn = real_stall(*a, **k)
+
+            def on_stall(present, finished):
+                events.append(("stall", time.monotonic(), sorted(present)))
+                fn(present, finished)
+            return on_stall
+
+        def kill(proc):
+            events.append(("kill", time.monotonic(), proc.pid))
+            real_kill(proc)
+        ll.make_dead_killer, ll.make_stall_killer = dead_killer, stall_killer
+        subprocess.Popen.kill = kill
+        return self
+
+    def __exit__(self, *exc):
+        (self._ll.make_dead_killer, self._ll.make_stall_killer,
+         subprocess.Popen.kill) = self._real
+
+    def of(self, kind):
+        return [e for e in self.events if e[0] == kind]
+
+
+def phase20(torch, w3):
+    """Phase 20: k-means and GBDT at world 3 over ``pyrobust`` through a
+    rank that hangs (SIGSTOP) while it holds its sockets, under the
+    port's launcher with the liveness layer: (a) ``kmeans.run`` with
+    heartbeats every P20_HEARTBEAT_SEC and the engine's default 600 s
+    link timeout, so only the tracker's dead verdict can free the
+    survivors; (b) ``boosting.train`` with the float32 kernel, no
+    heartbeat, the stall watchdog at P20_WATCHDOG_SEC and a link
+    timeout of at least P20_TIMEOUT_WAITS times phase 17's longest wait
+    in one collective.  Each hang must cost exactly one kill and one
+    extra life (another would be a false verdict); results bit for bit
+    phase 17's; B1 and B3 launches by life as the stop point gives
+    them; replays where phase 19 puts them.  Returns B1's and B3's
+    launches by rank and life."""
+    timeout = max(P20_TIMEOUT_MIN,
+                  int(np.ceil(P20_TIMEOUT_WAITS * w3["f32_longest_wait"])))
+    log(f"[20] hung ranks at world {W3_RANKS} over pyrobust: "
+        f"launch_local.launch({W3_RANKS}, ...); k-means dense16 "
+        f"{MAIN_ROWS} x 256, {W3_KM_ITERS} iterations, rank "
+        f"{P20_RUNS['kmeans'][0]} stops at {P20_RUNS['kmeans'][1:]}, "
+        f"heartbeat_sec={P20_HEARTBEAT_SEC}, link timeout left at 600 s; "
+        f"boosting.train {GBDT_ROWS} x {GBDT_FEATURES}, {W3_GB_ROUNDS} "
+        f"rounds, float32 kernel, rank {P20_RUNS['gbdt'][0]} stops at "
+        f"{P20_RUNS['gbdt'][1:]}, watchdog_sec={P20_WATCHDOG_SEC:g}, "
+        f"RABIT_TIMEOUT_SEC={timeout} (phase 17's longest wait in one "
+        f"collective {w3['f32_longest_wait']:.3f} s)")
+    from rabit_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = [_build.library_path(n) for n in ("kmeans_stats_dense",
+                                             "histogram")]
+    stamps = [p.stat().st_mtime_ns for p in libs]
+    kw = {"kmeans": dict(heartbeat_sec=P20_HEARTBEAT_SEC),
+          "gbdt": dict(watchdog_sec=P20_WATCHDOG_SEC,
+                       extra_env={"RABIT_TIMEOUT_SEC": str(timeout)})}
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in P20_RUNS:
+            with _KillLog() as kl:
+                code, secs = _launch_ranks("20", which, tmp, **kw[which])
+            lives = _rank_lives(tmp, which)
+            if code != 0:
+                raise AssertionError(f"phase 20 {which}: the launcher "
+                                     f"returned {code}")
+            hung = P20_RUNS[which][0]
+            got = {r: len(lives.get(r, [])) for r in range(W3_RANKS)}
+            want = {r: 1 + (r == hung) for r in range(W3_RANKS)}
+            stops = [(rank, i) for rank, recs in lives.items()
+                     for i, r in enumerate(recs) if "stopped" in r]
+            kills = kl.of("kill")
+            if got != want or stops != [(hung, 0)] or len(kills) != 1 \
+                    or kills[0][2] != lives[hung][0]["pid"]:
+                raise AssertionError(
+                    f"phase 20 {which}: lives by rank {got} (want {want}: "
+                    f"another is a false verdict), stops {stops}, kills "
+                    f"{kills}, the stopped life's pid "
+                    f"{lives.get(hung, [{}])[0].get('pid')}")
+            for rank, recs in lives.items():
+                for i, r in enumerate(recs):
+                    if (r["engine"] != "PyRobustEngine"
+                            or r["done"] != (i == len(recs) - 1)
+                            or r["relaunched"] != (i > 0)
+                            or (r["trial"], r["relaunch"]) != (0, i)
+                            or "killed" in r):
+                        raise AssertionError(
+                            f"phase 20 {which} rank {rank} life {i + 1}: "
+                            f"engine {r['engine']}, done {r['done']}, "
+                            f"relaunched {r['relaunched']}, trial "
+                            f"{r['trial']}, relaunch {r['relaunch']}")
+            if which == "kmeans" and (kl.of("stall")
+                                      or not kl.of("verdict")):
+                raise AssertionError(f"phase 20 kmeans: launcher events "
+                                     f"{kl.events}")
+            if which == "gbdt" and (kl.of("verdict") or not kl.of("stall")):
+                raise AssertionError(f"phase 20 gbdt: launcher events "
+                                     f"{kl.events}")
+            result[which] = dict(lives=lives, seconds=secs,
+                                 events=list(kl.events))
+            log(f"    {which}: launcher returned 0 in {secs:.1f} s; lives "
+                f"by rank {[got[r] for r in range(W3_RANKS)]}; one stop, "
+                f"one kill; launcher events "
+                f"{[(e[0], e[2]) for e in kl.events]}")
+    if [p.stat().st_mtime_ns for p in libs] != stamps:
+        raise AssertionError("phase 20: a rank process rebuilt a kernel")
+
+    # (a) k-means
+    lives = result["kmeans"]["lives"]
+    want_cent = np.asarray(w3["centroids"], np.float32)
+    oracle = np.asarray(w3["oracle_counts"])
+    b1 = {}
+    for rank, recs in sorted(lives.items()):
+        cent = np.asarray(recs[-1]["centroids"], np.float32)
+        if not np.array_equal(cent, want_cent):
+            raise AssertionError(
+                f"phase 20 k-means rank {rank}: final centroids off phase "
+                f"17's by {float(np.abs(cent - want_cent).max())}")
+        for r in recs:
+            for op in (o for o in r["ops"] if "counts" in o):
+                if op["counts"] != oracle[op["version"]].tolist():
+                    raise AssertionError(
+                        f"phase 20 k-means rank {rank}: counts at version "
+                        f"{op['version']} off the oracle's")
+            if r["done"] and r["tiers"] != ["dense16"]:
+                raise AssertionError(f"phase 20 k-means rank {rank}: "
+                                     f"staged {r['tiers']}")
+            if any(o["replayed"] for o in r["ops"]):
+                raise AssertionError(f"phase 20 k-means rank {rank}: a "
+                                     f"replayed op (nobody completed the "
+                                     f"op the hung rank stopped in)")
+        b1[rank] = [r["launches"]["kmeans_stats_dense"] for r in recs]
+        if b1[rank] != P20_B1_LIVES[rank] or any(
+                r["launches"]["kmeans_stats_ell"] for r in recs):
+            raise AssertionError(f"phase 20 k-means rank {rank}: B1 "
+                                 f"launches by life {b1[rank]}, want "
+                                 f"{P20_B1_LIVES[rank]}")
+    starts = {rank: [r.get("start_version") for r in recs]
+              for rank, recs in lives.items()}
+    if starts != {0: [0], 1: [0, 1], 2: [0]}:
+        raise AssertionError(f"phase 20 k-means: checkpoints loaded by "
+                             f"rank and life {starts}")
+    log(f"    k-means: final centroids on every rank bit for bit phase "
+        f"17's; counts of every iteration each life ran equal the "
+        f"oracle's; no op replayed; B1 launches by rank and life "
+        f"{[b1[r] for r in range(W3_RANKS)]}; versions loaded "
+        f"{[starts[r] for r in range(W3_RANKS)]}")
+    _hang_timeline("kmeans", result["kmeans"])
+    _recovery_times("kmeans", lives)
+
+    # (b) GBDT
+    lives = result["gbdt"]["lives"]
+    hung, _v, stopped_at = P20_RUNS["gbdt"]
+    finals = [lives[r][-1] for r in range(W3_RANKS)]
+    trees = finals[0]["trees"]
+    if any(f["trees"] != trees for f in finals) or \
+            trees != w3["f32_trees"]:
+        raise AssertionError("phase 20 GBDT: the trees differ from phase "
+                             "17's float32-kernel trees")
+    n = sum(f["rows"] for f in finals)
+    losses = [sum(f["loss_sums"][i] for f in finals) / n
+              for i in range(W3_GB_ROUNDS)]
+    if losses != w3["f32_losses"]:
+        raise AssertionError(f"phase 20 GBDT: log-loss {losses} vs phase "
+                             f"17's {w3['f32_losses']}")
+    second = lives[hung][1]
+
+    def seq_map(recs, version):
+        return [(o["kind"], o["seq"], o["nbytes"]) for r in recs
+                for o in r["ops"] if o["version"] == version]
+    survivor = next(r for r in range(W3_RANKS) if r != hung)
+    replayed = [(o["version"], o["seq"]) for o in second["ops"]
+                if o["replayed"]]
+    if seq_map([second], 0) or seq_map([second], 1) != seq_map(
+            lives[survivor], 1) or replayed != [(1, 0), (1, 1)] or any(
+            o["replayed"] for r in range(W3_RANKS) for life in lives[r]
+            if life is not second for o in life["ops"]):
+        raise AssertionError(
+            f"phase 20 GBDT: the relaunched rank's ops "
+            f"{seq_map([second], 1)}"
+            f" at version 1 (survivors' {seq_map(lives[survivor], 1)}), "
+            f"replayed {replayed}")
+    chunks = finals[0]["level_chunks"]
+    b3 = {r: [life["launches"]["gbdt_hist"] for life in lives[r]]
+          for r in range(W3_RANKS)}
+    want_b3 = {r: [sum(map(sum, chunks))] for r in range(W3_RANKS)}
+    want_b3[hung] = [sum(chunks[0]) + sum(chunks[1][:stopped_at + 1]),
+                     sum(chunks[1])]
+    if b3 != want_b3 or any(life["launches"]["kmeans_stats_dense"]
+                            for recs in lives.values() for life in recs):
+        raise AssertionError(f"phase 20 GBDT: B3 launches by rank and life "
+                             f"{b3}, level chunks give {want_b3}")
+    log(f"    GBDT: trees node for node and log-loss "
+        f"{[round(v, 6) for v in losses]} bit for bit phase 17's float32 "
+        f"kernel; the relaunched rank {hung} replayed {replayed} and "
+        f"issued the survivors' version-1 ops; B3 launches by rank and "
+        f"life {[b3[r] for r in range(W3_RANKS)]} (level chunks {chunks})")
+    _hang_timeline("gbdt", result["gbdt"])
+    _recovery_times("gbdt", lives)
+    log(f"    phase 20 wall {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans_stats_dense=[b1[r] for r in range(W3_RANKS)],
+                gbdt_hist=[b3[r] for r in range(W3_RANKS)])
+
+
+def _hang_timeline(which, run):
+    """stop -> the launcher's verdict or stall event -> its kill -> the
+    relaunched life's process start, its first op and its first fresh
+    op; and each survivor's LinkError -> resumed op, all on the
+    monotonic clock and from the stop."""
+    lives = run["lives"]
+    hung = P20_RUNS[which][0]
+    first, second = lives[hung]
+    stop = first["t0"] + first["marks"]["stopped"]
+    kinds = {"verdict": "heartbeat verdict", "stall": "stall watchdog"}
+    notes = [(kinds[e[0]], e[1]) for e in run["events"] if e[0] in kinds]
+    kill = next(e[1] for e in run["events"] if e[0] == "kill")
+    ops = second["ops"]
+    fresh = [o for o in ops if not o["replayed"]]
+    parts = [f"{notes[0][0]} +{notes[0][1] - stop:.3f} s "
+             f"({len(notes)} call(s))",
+             f"kill +{kill - stop:.3f} s",
+             f"relaunched process start +{second['t0'] - stop:.3f} s",
+             f"its first op +{second['t0'] + ops[0]['issued'] - stop:.3f} s"]
+    if fresh:
+        parts.append(f"its first fresh op (v{fresh[0]['version']} seq "
+                     f"{fresh[0]['seq']}) +"
+                     f"{second['t0'] + fresh[0]['issued'] - stop:.3f} s")
+    log(f"    {which} hang: rank {hung} stopped at v"
+        f"{first['stopped'][0]} seq {first['stopped'][1]} -> "
+        + " -> ".join(parts))
+    for rank, recs in sorted(lives.items()):
+        if rank == hung:
+            continue
+        for e in recs[0]["episodes"]:
+            log(f"    {which} survivor rank {rank}: LinkError "
+                f"+{recs[0]['t0'] + e['t_err'] - stop:.3f} s after the "
+                f"stop -> {e['op']} v{e['version']} seq {e['seq']} resumed "
+                f"+{recs[0]['t0'] + e['resumed'] - stop:.3f} s (recover "
+                f"rendezvous {e['rendezvous']:.3f} s, serving "
+                f"{e['serving'] * 1e3:.3f} ms)")
 
 
 def main() -> int:
@@ -3506,6 +3849,14 @@ def main() -> int:
         if line["name"] in p19:
             line["phase19_launches_by_rank_and_life"] = p19[line["name"]]
     log(f"    phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # 20. liveness at world 3: hung ranks found by heartbeat and watchdog
+    t0 = time.perf_counter()
+    p20 = phase20(torch, w3)
+    for line in lines:
+        if line["name"] in p20:
+            line["phase20_launches_by_rank_and_life"] = p20[line["name"]]
+    log(f"    phase 20 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -3521,6 +3872,6 @@ if __name__ == "__main__":
         sys.exit(world3_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     if sys.argv[1:2] == ["--phase18-rank"]:
         sys.exit(phase18_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
-    if sys.argv[1:2] == ["--phase19-rank"]:
-        sys.exit(phase19_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"]):
+        sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
     sys.exit(main())

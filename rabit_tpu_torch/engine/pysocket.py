@@ -4,9 +4,9 @@ PyTorch-port counterpart of :class:`rabit_tpu.engine.pysocket.PySocketEngine`
 (its own copy: the port imports nothing of the JAX package), carried as
 far as its collective API: tracker rendezvous, persistent
 worker-worker links, the core collectives, the async progress pump with
-small-op bucket fusion, custom reductions and the hierarchical
-schedule, with the reference's names and structure so that each member
-has its counterpart there.  It
+small-op bucket fusion, custom reductions, the hierarchical schedule
+and the heartbeat liveness channel, with the reference's names and
+structure so that each member has its counterpart there.  It
 is byte-compatible on the wire: port ranks and reference ranks form one
 world, and for the same inputs every rank gets the same bits either
 engine would give.
@@ -29,11 +29,12 @@ Payloads are numpy arrays, as the reference engine moves numpy; a
 ROADMAP A5).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
-heartbeats (A3b); elastic rescale (A4b; the robust layer is
+elastic rescale (A4b; the robust layer is
 :mod:`rabit_tpu_torch.engine.robust`);
 shared-memory links, the tuning cache and the ``auto``, ``swing`` and
 ``synth`` schedules, wire codecs, chaos injection, telemetry and
-tracing (the reference's ``async.*`` instruments among them), the
+tracing (the reference's ``async.*`` instruments among them, and on
+the heartbeat channel its obs frames, beat echoes and ``hb.rtt``), the
 shard directory and link pacing (A8).
 """
 from __future__ import annotations
@@ -245,6 +246,10 @@ class PySocketEngine(Engine):
         self._issue_idx = 0     # async handles issued (user ops)
         self._wait_idx = 0      # next handle index allowed to wait()
         self._pending: Optional[dict] = None  # open coalescing bucket
+        # Heartbeat liveness channel (rabit_heartbeat_sec; 0 = off).
+        self._hb_sec = 0.0
+        self._hb_stop: Optional[threading.Event] = None
+        self._hb_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
     # lifecycle / rendezvous
@@ -361,9 +366,16 @@ class PySocketEngine(Engine):
         raw = _param_or_env("rabit_wire_integrity")
         integrity = (str(raw).strip().lower()
                      if raw not in (None, "") else "off")
+        # Proactive liveness: send one keepalive per rabit_heartbeat_sec
+        # on a persistent tracker connection (0 disables; the tracker's
+        # miss budget is RABIT_HEARTBEAT_MISS periods).
+        raw = _param_or_env("rabit_heartbeat_sec")
+        self._hb_sec = float(raw) if raw not in (None, "") else 0.0
+        check(self._hb_sec >= 0, "rabit_heartbeat_sec must be >= 0")
         self._tcfg = tr.TransportConfig(transport=transport,
                                         integrity=integrity)
         self._rendezvous(P.CMD_START)
+        self._start_heartbeat()
 
     @staticmethod
     def _refuse_unported(params: dict, param_or_env) -> None:
@@ -406,8 +418,7 @@ class PySocketEngine(Engine):
             raw = param_or_env(key)
             if raw is not None and str(raw).strip():
                 refuse(key, raw, "A8")
-        for key, item in (("rabit_heartbeat_sec", "A3b"),
-                          ("rabit_link_mbps", "A8"),
+        for key, item in (("rabit_link_mbps", "A8"),
                           ("rabit_trace_sample", "A8")):
             raw = param_or_env(key)
             if raw not in (None, "") and float(raw) > 0:
@@ -720,9 +731,73 @@ class PySocketEngine(Engine):
             self._listener.close()
             self._listener = None
 
+    # ------------------------------------------------------------------
+    # heartbeat liveness channel
+    # ------------------------------------------------------------------
+    def _start_heartbeat(self) -> None:
+        """One persistent CMD_HEARTBEAT connection, fed by a daemon
+        thread: the tracker's deadline sweep turns missing beats into a
+        dead verdict (and a supervisor kill) without any collective op
+        having to touch the hung rank first.  A SIGSTOP'd process stops
+        this thread with everything else — which is exactly the
+        signal."""
+        if self._hb_sec <= 0 or self._tracker_addr is None:
+            return
+        self._hb_stop = threading.Event()
+        self._hb_thread = threading.Thread(
+            target=self._hb_loop, name="rabit-heartbeat", daemon=True)
+        self._hb_thread.start()
+
+    def _hb_dial(self) -> socket.socket:
+        sock = self._tracker_connect(P.CMD_HEARTBEAT)
+        P.send_u32(sock, max(int(self._hb_sec * 1000), 1))
+        return sock
+
+    def _hb_loop(self) -> None:
+        sock: Optional[socket.socket] = None
+        beat = 0
+        next_beat = time.monotonic()   # beat immediately at startup
+        while not self._hb_stop.wait(max(next_beat - time.monotonic(),
+                                         0.0)):
+            now = time.monotonic()
+            try:
+                if sock is None:
+                    sock = self._hb_dial()
+                beat += 1
+                P.send_u32(sock, beat)
+                next_beat = now + self._hb_sec
+            except OSError:
+                # Tracker unreachable (restarting, mid-teardown): drop
+                # the channel and re-dial next period — liveness is
+                # best effort, never a reason to kill a healthy worker.
+                # Pacing: push the deadline one period out so a dead
+                # tracker never turns this loop into a re-dial spin.
+                if sock is not None:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                    sock = None
+                next_beat = time.monotonic() + self._hb_sec
+        if sock is not None:
+            try:
+                P.send_u32(sock, P.HEARTBEAT_BYE)  # clean shutdown
+                sock.close()
+            except OSError:
+                pass
+
+    def _stop_heartbeat(self) -> None:
+        t = self._hb_thread
+        if t is None:
+            return
+        self._hb_stop.set()
+        t.join(timeout=5)
+        self._hb_thread = None
+
     def shutdown(self) -> None:
         self._fence()
         self._stop_pump()
+        self._stop_heartbeat()
         if self._tracker_addr is not None:
             try:
                 self._tracker_connect(P.CMD_SHUTDOWN).close()

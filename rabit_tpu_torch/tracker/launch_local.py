@@ -6,23 +6,25 @@ analogue: tracker/rabit_demo.py:28-64): starts the port's tracker plus N
 worker processes and — the fault-tolerance test harness — restarts any
 worker that exits with the kill-point code (254), passing an
 incremented ``RABIT_NUM_TRIAL`` so deterministic mock kill-points fire
-once per life, and relaunches a worker killed by a signal within
-``max_restarts``.
+once per life, relaunches a worker killed by a signal within
+``max_restarts``, and kills a hung worker — one the tracker's stall
+watchdog (``watchdog_sec``) or heartbeat detector (``heartbeat_sec``)
+names — for a free restart with the same ``RABIT_NUM_TRIAL``.
 
 Usage:
     python -m rabit_tpu_torch.tracker.launch_local -n 4 python worker.py
 
 Left out until their ROADMAP items, each refused where it is asked for
 (an argparse error from the CLI, :class:`NotImplementedError` from
-:func:`launch`): the stall watchdog and heartbeats (A3b); the durable
-checkpoint tier, elastic membership and the tracker's state journal
-(A4b); telemetry and tracing (A8).
+:func:`launch`): the durable checkpoint tier, elastic membership and
+the tracker's state journal (A4b); telemetry and tracing (A8).
 """
 from __future__ import annotations
 
 import argparse
 import os
 import random
+import signal
 import subprocess
 import sys
 import threading
@@ -38,9 +40,7 @@ RESTART_EXIT_CODE = 254
 
 # Where each launcher option the port refuses lands in ROADMAP.md's
 # queue A: (launch() keyword, CLI flag, item).
-_UNPORTED = (("watchdog_sec", "--watchdog", "A3b"),
-             ("heartbeat_sec", "--heartbeat", "A3b"),
-             ("ckpt_dir", "--ckpt-dir", "A4b"),
+_UNPORTED = (("ckpt_dir", "--ckpt-dir", "A4b"),
              ("min_workers", "--min-workers", "A4b"),
              ("max_workers", "--max-workers", "A4b"),
              ("state_dir", "--state-dir", "A4b"),
@@ -58,11 +58,90 @@ def is_dead_exit(code: int) -> bool:
     return code < 0
 
 
+def is_watchdog_exit(code: int) -> bool:
+    """True when an exit status is one the watchdog's kill can produce.
+
+    The stall killer marks a worker as watchdog-killed *before* the kill
+    lands; a worker that crashes on its own in that window must not be
+    classified as watchdog-killed, or a genuinely failing worker gets
+    silently restarted until the restart budget runs out.  The kill is
+    always SIGKILL (``Popen.kill``)."""
+    return code == -signal.SIGKILL
+
+
 def restart_delay_ms(nth_restart: int, base_ms: float) -> float:
     """Supervisor relaunch pacing: capped exponential backoff (32x the
     base) with jitter."""
     return min(base_ms * (1 << (nth_restart - 1)),
                32.0 * base_ms) * random.uniform(0.5, 1.0)
+
+
+def make_dead_killer(live: dict, started: dict, lock: threading.Lock,
+                     watchdog_killed: set, heartbeat_sec: float | None):
+    """Heartbeat-verdict policy (tracker ``on_dead``): kill the
+    declared-dead worker so its keepalive restarts it, riding the
+    watchdog-kill bookkeeping (a free restart — the launcher caused the
+    death).
+
+    The grace window keeps a stale verdict (the tracker re-notifies
+    while a corpse's socket lingers) from killing the freshly
+    relaunched life; the tracker re-notifies past it.  (The reference's
+    ``label`` and ``kill_fn``, a log tag and a remote kill for its ssh
+    pod launcher, wait for that launcher, ROADMAP A8.)"""
+    dead_grace = max(2.0, 3.0 * float(heartbeat_sec or 0.0))
+
+    def on_dead(task_id: str) -> None:
+        try:
+            wid = int(task_id)
+        except (TypeError, ValueError):
+            return
+        with lock:
+            proc = live.get(wid)
+            if proc is None or proc.poll() is not None:
+                return  # already dead; the keepalive is on it
+            if time.monotonic() - started.get(wid, 0.0) < dead_grace:
+                return  # freshly (re)started life: not the corpse
+            watchdog_killed.add(wid)
+        sys.stderr.write(f"[launch_local] heartbeat: worker {wid} declared "
+                         "dead; killing for restart\n")
+        sys.stderr.flush()
+        proc.kill()
+
+    return on_dead
+
+
+def make_stall_killer(n_workers: int, live: dict, started: dict,
+                      lock: threading.Lock, watchdog_killed: set,
+                      watchdog_sec: float | None):
+    """Hung-worker policy (tracker ``on_stall``).
+
+    Kills AT MOST ONE hung worker per stall event: killing one sends
+    RSTs that error its peers out into recovery with their in-memory
+    checkpoint replicas intact, while killing every silent worker at
+    once would destroy all replicas and silently restart the job from
+    version 0; if more than one is truly wedged, the next stall event
+    (one watchdog period later) takes the next one."""
+
+    def on_stall(present: set, finished: set) -> None:
+        all_ids = {str(i) for i in range(n_workers)}
+        for tid in sorted(all_ids - present - finished):
+            wid = int(tid)
+            with lock:
+                proc = live.get(wid)
+                if proc is None or proc.poll() is not None:
+                    continue  # already dead; keepalive is restarting it
+                if (watchdog_sec is not None
+                        and time.monotonic() - started.get(wid, 0.0)
+                        < watchdog_sec):
+                    continue  # freshly (re)started: give it a full period
+                watchdog_killed.add(wid)
+            sys.stderr.write(f"[launch_local] watchdog: worker {wid} is "
+                             "hung; killing for restart\n")
+            sys.stderr.flush()
+            proc.kill()
+            return
+
+    return on_stall
 
 
 def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
@@ -94,6 +173,14 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
     ``job``: name the tenant (``rabit_job_id`` / ``RABIT_JOB_ID``);
     workers register under this job on the tracker.
 
+    ``watchdog_sec``: kill + restart workers the tracker reports as hung
+    (registered peers are waiting on the rendezvous barrier, this worker
+    stayed silent that long).  ``heartbeat_sec``: exported to workers as
+    ``RABIT_HEARTBEAT_SEC``; it also arms the tracker's heartbeat
+    failure detector, whose dead verdicts are handled like watchdog
+    kills.  Either kill is a free restart: same ``RABIT_NUM_TRIAL``,
+    ``RABIT_RELAUNCH`` one higher, within ``max_trials``.
+
     Workers get the tracker's ``worker_env``, ``RABIT_NUM_TRIAL`` and
     ``RABIT_RELAUNCH`` (restarts of any cause) on top of ``extra_env``.
     A permanent failure (any other non-zero exit) stops the tracker,
@@ -104,8 +191,7 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
     Returns 0 if every worker finished cleanly, else the first non-restart
     non-zero exit code.
     """
-    given = dict(watchdog_sec=watchdog_sec, heartbeat_sec=heartbeat_sec,
-                 ckpt_dir=ckpt_dir, min_workers=min_workers,
+    given = dict(ckpt_dir=ckpt_dir, min_workers=min_workers,
                  max_workers=max_workers, state_dir=state_dir,
                  obs_dir=obs_dir, obs_port=obs_port, trace_dir=trace_dir)
     for key, _flag, item in _UNPORTED:
@@ -116,16 +202,27 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
     if job is not None:
         P.require_valid_job_id(job)
     extra_env = dict(extra_env or {})
+    if heartbeat_sec:
+        extra_env.setdefault("RABIT_HEARTBEAT_SEC", str(heartbeat_sec))
     failures: list[int] = []
     live: dict[int, subprocess.Popen] = {}
+    started: dict[int, float] = {}
     lock = threading.Lock()
     aborting = threading.Event()
+    watchdog_killed: set[int] = set()
 
-    tracker = Tracker(n_workers)
+    on_stall = make_stall_killer(n_workers, live, started, lock,
+                                 watchdog_killed, watchdog_sec)
+    on_dead = make_dead_killer(live, started, lock, watchdog_killed,
+                               heartbeat_sec)
+    tracker = Tracker(n_workers, watchdog_sec=watchdog_sec,
+                      on_stall=on_stall if watchdog_sec else None,
+                      on_dead=on_dead if heartbeat_sec else None)
     tracker.start()
 
     def keepalive(worker_id: int) -> None:
         trial = 0
+        wd_restarts = 0
         sup_restarts = 0
         while not aborting.is_set():
             env = dict(os.environ)
@@ -134,16 +231,30 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
             env["RABIT_NUM_TRIAL"] = str(trial)
             # Total restarts of any cause.  Distinct from RABIT_NUM_TRIAL,
             # which counts only kill-point deaths so deterministic mock
-            # scenarios stay reproducible under supervisor restarts.
-            env["RABIT_RELAUNCH"] = str(trial + sup_restarts)
+            # scenarios stay reproducible under watchdog and supervisor
+            # restarts.
+            env["RABIT_RELAUNCH"] = str(trial + wd_restarts + sup_restarts)
             with lock:
                 if aborting.is_set():
                     return
                 proc = subprocess.Popen(cmd, env=env)
                 live[worker_id] = proc
+                started[worker_id] = time.monotonic()
             code = proc.wait()
             with lock:
                 live.pop(worker_id, None)
+                was_watchdog = worker_id in watchdog_killed
+                watchdog_killed.discard(worker_id)
+            if (was_watchdog and is_watchdog_exit(code)
+                    and wd_restarts < max_trials):
+                # same trial number: the worker never reached its
+                # kill-point, it was stopped from outside
+                wd_restarts += 1
+                if verbose:
+                    sys.stderr.write(
+                        f"[launch_local] worker {worker_id} killed as "
+                        f"hung; restart #{wd_restarts}\n")
+                continue
             if code == RESTART_EXIT_CODE and trial < max_trials:
                 trial += 1
                 if verbose:
@@ -204,6 +315,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--job", default=None, metavar="ID",
                     help="tenant name (rabit_job_id / RABIT_JOB_ID): "
                          "workers register under this job")
+    ap.add_argument("--watchdog", type=float, default=None, metavar="SEC",
+                    help="kill+restart workers that stall a rendezvous "
+                         "round this long (hung-worker detection)")
+    ap.add_argument("--heartbeat", type=float, default=None, metavar="SEC",
+                    help="worker keepalive period (RABIT_HEARTBEAT_SEC); "
+                         "arms the tracker's proactive failure detector "
+                         "— hung ranks are killed+relaunched without a "
+                         "collective op having to touch them")
     for _key, flag, item in _UNPORTED:
         ap.add_argument(flag, default=None,
                         help=f"not ported yet (ROADMAP {item})")
@@ -221,8 +340,9 @@ def main(argv: list[str] | None = None) -> None:
     if not args.cmd:
         ap.error("missing worker command")
     sys.exit(launch(args.num_workers, args.cmd, args.max_trials,
-                    args.verbose, max_restarts=args.max_restarts,
-                    job=args.job))
+                    args.verbose, watchdog_sec=args.watchdog,
+                    max_restarts=args.max_restarts,
+                    heartbeat_sec=args.heartbeat, job=args.job))
 
 
 if __name__ == "__main__":

@@ -10,8 +10,8 @@ PyTorch-port counterpart of :mod:`rabit_tpu.tracker.protocol`, copied
 whole (it imports only the stdlib), so every message is byte-identical
 in both directions and a world may mix the two packages' ranks under one
 tracker.  The port's tracker (:mod:`rabit_tpu_torch.tracker.tracker`)
-serves start, recover, print and shutdown; it refuses the other commands
-named below as the reference refuses an unknown command.
+serves start, recover, print, shutdown and heartbeat; it refuses the
+other commands named below as the reference refuses an unknown command.
 
 All integers are u32 little-endian.  Strings are u32 length + utf-8 bytes.
 

@@ -1,12 +1,13 @@
-"""Rendezvous tracker — the control plane's rendezvous core.
+"""Rendezvous tracker — the control plane's rendezvous core and liveness.
 
 PyTorch-port counterpart of :mod:`rabit_tpu.tracker.tracker`, cut to the
-rendezvous core: it assigns ranks (stable per task_id across restarts),
-computes the tree+ring topology plus every schedule's extra links, hands
-each worker its connect/accept lists, relays worker log lines, and
-terminates when every job it served has completed.  Its replies equal
-the reference tracker's field for field, so port ranks and reference
-ranks can register with either tracker.
+rendezvous core and the liveness layer: it assigns ranks (stable per
+task_id across restarts), computes the tree+ring topology plus every
+schedule's extra links, hands each worker its connect/accept lists,
+relays worker log lines, decides which workers are alive, and
+terminates when every job it served has completed or was collected as
+an orphan.  Its replies equal the reference tracker's field for field,
+so port ranks and reference ranks can register with either tracker.
 
 As in the reference:
 
@@ -14,31 +15,46 @@ As in the reference:
   completes only when all ``world`` workers have registered, then
   everyone receives a complete topology in one reply.
 * Tracker connections are one-shot: each command (start/recover/print/
-  shutdown) is a fresh TCP connection.
+  shutdown) is a fresh TCP connection.  The single exception is the
+  heartbeat channel (``cmd=heartbeat``): one persistent connection per
+  worker carrying periodic keepalives.  A worker whose beats stop for
+  ``heartbeat_miss`` periods is declared dead (its parked registrant is
+  evicted and ``on_dead`` tells the supervisor), a parked registrant
+  whose socket closes is swept from the barrier, a round left partly
+  filled for ``watchdog_sec`` calls ``on_stall``, and a job whose
+  members all vanished without a goodbye is collected after
+  ``job_gc_sec``.
 * The ring is the plain rank cycle and the tree is the binary heap over
   ranks; :func:`rabit_tpu_torch.sched.topo.extra_link_peers` adds the
   halving/doubling, Swing and hierarchical peers to every linkset.
 * Jobs are keyed by the ``job`` field of the worker hello (protocol
   ``MAGIC_JOB``; the classic hello lands in the ``default`` job), each
-  with its own :class:`JobState`.
+  with its own :class:`JobState`; every liveness verdict is scoped to
+  its job.
 
-Not ported yet, each with its ROADMAP item: the heartbeat channel, the
-registrant sweep and the stall watchdog (A3b); elastic membership
-(``rescale``/``epoch``), the durable journal and the formation barrier
-(A4b); the XLA coordinator service (``jaxsvc``, A5); obs telemetry, the
-adaptive controller, admission limits, HTTP and the CLI (A8).  A command
-of those (``rescale``, ``epoch``, ``heartbeat``, ``formbar``,
+Not ported yet, each with its ROADMAP item: elastic membership
+(``rescale``/``epoch``, the scale-down a death verdict triggers), the
+durable journal and the formation barrier (A4b); the XLA coordinator
+service (``jaxsvc``, A5); obs telemetry (a heartbeat channel's obs
+frames count as beats and their payload is dropped; beats are never
+echoed), the adaptive controller, admission limits, HTTP and the CLI
+(A8).  A command of those (``rescale``, ``epoch``, ``formbar``,
 ``jaxsvc``) gets the reference's treatment of an unknown command: the
 tracker logs it and closes the connection.  ``epoch`` is 0 in every
 reply, ``sched`` is "" and ``demoted`` is empty.
 """
 from __future__ import annotations
 
+import collections
 import os
+import selectors
 import socket
+import struct
 import sys
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 from rabit_tpu_torch.sched import topo as sched_topo
 from rabit_tpu_torch.sched import tuner as sched_tuner
@@ -80,9 +96,26 @@ class _Registrant:
     cmd: str = P.CMD_START
 
 
+@dataclass
+class _HbPeer:
+    """One worker's persistent heartbeat connection (CMD_HEARTBEAT)."""
+
+    sock: socket.socket
+    task_id: str
+    period_s: float
+    last: float                    # monotonic time of the last beat
+    buf: bytearray = field(default_factory=bytearray)
+    dead: bool = False             # declared dead by the deadline sweep
+    bye: bool = False              # clean shutdown seen
+    notified: float = 0.0          # last on_dead notification (rearm)
+    obs: bool = False              # an obs frame was seen (logged once)
+
+
 class JobState:
-    """The rendezvous state of ONE job (tenant) served by the tracker:
-    rank map, membership and the rendezvous barrier."""
+    """The control-plane state of ONE job (tenant) served by the
+    tracker: rank map, membership, the rendezvous barrier, heartbeat
+    peers and the liveness timeline.  Every mutation the tracker
+    performs on behalf of a worker is scoped to the worker's job."""
 
     def __init__(self, tracker: "Tracker", name: str,
                  n_workers: int) -> None:
@@ -90,11 +123,12 @@ class JobState:
         self.name = name
         self.n_workers = n_workers
         # Lifecycle: ``touched`` flips on the first admitted worker
-        # command; ``done`` on unanimous goodbye — a done incarnation
-        # holds nothing and a re-registration under the same name is a
-        # NEW job submission.
+        # command; ``done`` on unanimous goodbye or orphan GC — a done
+        # incarnation holds nothing and a re-registration under the same
+        # name is a NEW job submission.
         self.touched = False
         self.done = False
+        self.last_activity = time.monotonic()
         self._rank_of: dict[str, int] = {}      # task_id -> stable rank
         # Tasks that finished (cmd=shutdown), keyed by task_id.
         self._shutdown_tasks: set[str] = set()
@@ -107,7 +141,22 @@ class JobState:
         # its topology reply.
         self._started_tasks: set[str] = set()
         self._pending: list[_Registrant] = []
+        self._round_started: float | None = None  # first registrant time
         self._pending_lock = threading.Lock()
+        # Heartbeat failure detector state (protocol CMD_HEARTBEAT),
+        # job-scoped: task ids are only unique within a job.
+        self._hb_peers: dict[str, _HbPeer] = {}
+        self._hb_seen: set[str] = set()  # tasks that ever heartbeat —
+        # a SECOND channel for the same task is its relaunched life
+        self._hb_lock = threading.Lock()
+        # Job-scoped liveness/restart timeline.
+        self._events: collections.deque = collections.deque(maxlen=2048)
+        # Every task with an unresolved loss verdict (heartbeat EOF or
+        # deadline, registrant sweep, supervisor note_dead) — cleared by
+        # re-registration or a fresh heartbeat channel.  The orphan
+        # GC's evidence that the job's members vanished rather than
+        # went quiet.
+        self._lost_tasks: set[str] = set()
         # One thread runs _finish_round at a time.
         self._round_lock = threading.Lock()
 
@@ -128,8 +177,46 @@ class JobState:
             return self._members <= self._shutdown_tasks
         return len(self._shutdown_tasks) >= self.n_workers
 
+    def orphaned(self, now: float) -> str | None:
+        """GC predicate for a job whose last member vanished without a
+        unanimous goodbye: returns the reason, or None while the job is
+        (possibly) alive.  Evidence-based — a job with live heartbeat
+        channels, parked registrants, or recent control-plane activity
+        is never a candidate, and a job that never armed heartbeats is
+        only collected once every member holds an explicit loss verdict
+        (heartbeat EOF, registrant sweep, supervisor note_dead)."""
+        if self.done or not self.touched:
+            return None
+        gc_sec = getattr(self._tracker, "_job_gc_sec", 30.0)
+        if now - self.last_activity < gc_sec:
+            return None
+        with self._pending_lock:
+            if self._pending:
+                return None
+        with self._hb_lock:
+            if any(not p.dead for p in self._hb_peers.values()):
+                return None
+            hb_seen = bool(self._hb_seen)
+        if not self._members:
+            # Died before the first round ever completed: the only
+            # evidence a worker existed at all is a loss verdict (the
+            # registrant sweep reaped its parked socket) or a heartbeat
+            # life that ended.  Without either, keep waiting — workers
+            # may simply not have arrived yet.
+            if self._lost_tasks or hb_seen:
+                return ("every registrant lost before the first round "
+                        "completed")
+            return None
+        if self._members <= (self._shutdown_tasks | self._lost_tasks):
+            return "every member lost without a unanimous goodbye"
+        if hb_seen:
+            return (f"heartbeat channels gone and the job idle "
+                    f"past {gc_sec:g}s")
+        return None
+
     def close(self) -> None:
-        """Drop this job's parked registrants' sockets."""
+        """Drop this job's sockets (pending registrants, heartbeat
+        channels)."""
         with self._pending_lock:
             for reg in self._pending:
                 try:
@@ -137,12 +224,258 @@ class JobState:
                 except OSError:
                     pass
             self._pending.clear()
+            self._round_started = None
+        with self._hb_lock:
+            peers, self._hb_peers = dict(self._hb_peers), {}
+        for peer in peers.values():
+            try:
+                peer.sock.close()
+            except OSError:
+                pass
+
+    # -- liveness / heartbeat ------------------------------------------
+    def _emit_liveness(self, phase: str, task_id: str, **fields) -> None:
+        """One control-plane liveness transition (alive / dead / lost /
+        shutdown / relaunch) on the job's timeline."""
+        ev = {"ts": time.time(), "name": "liveness", "phase": phase,
+              "task": task_id}
+        rank = self._rank_of.get(task_id)
+        if rank is not None:
+            ev["rank"] = rank
+        for k, v in fields.items():
+            if v is not None:
+                ev[k] = v
+        self._events.append(ev)
+
+    def note_dead(self, task_id: str) -> None:
+        """Supervisor-facing death notice: the launcher saw the worker
+        process exit and will not relaunch it.  Without elastic
+        membership (ROADMAP A4b) the loss verdict is all it records —
+        the orphan GC's evidence; nothing is rescaled."""
+        self._lost_tasks.add(task_id)
+
+    def _hb_register(self, sock: socket.socket, task_id: str,
+                     period_ms: int) -> None:
+        """A worker opened its persistent heartbeat channel; a fresh
+        connection for a known task is its relaunched life."""
+        sock.setblocking(False)
+        peer = _HbPeer(sock, task_id, max(int(period_ms), 1) / 1000.0,
+                       time.monotonic())
+        with self._hb_lock:
+            old = self._hb_peers.pop(task_id, None)
+            relaunched = old is not None or task_id in self._hb_seen
+            self._hb_seen.add(task_id)
+            self._hb_peers[task_id] = peer
+        if old is not None:
+            try:
+                old.sock.close()
+            except OSError:
+                pass
+        log("tracker:%s heartbeat channel open for task %r "
+            "(period %d ms%s)", self._tag(), task_id, period_ms,
+            ", relaunched" if relaunched else "")
+        self._emit_liveness("alive", task_id,
+                            relaunched=1 if relaunched else None)
+        self._lost_tasks.discard(task_id)
+
+    def _hb_forget(self, peer: _HbPeer) -> None:
+        with self._hb_lock:
+            if self._hb_peers.get(peer.task_id) is peer:
+                del self._hb_peers[peer.task_id]
+        try:
+            peer.sock.close()
+        except OSError:
+            pass
+
+    def _hb_drain(self, peer: _HbPeer, now: float) -> None:
+        """Consume whatever beats arrived on one heartbeat socket."""
+        try:
+            data = peer.sock.recv(4096)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            data = b""
+        if not data:
+            # EOF/RST without the bye: the process died.  The launcher
+            # watches the process directly, so no on_dead escalation —
+            # but the transition belongs in the timeline.
+            # No registrant eviction here: the dead process's parked
+            # rendezvous socket EOFs too and the registrant sweep reaps
+            # it, while a late-drained EOF must never close a freshly
+            # relaunched life's registrant parked under the same task.
+            self._hb_forget(peer)
+            if not peer.bye and not peer.dead \
+                    and not self._tracker._stopped:
+                log("tracker:%s heartbeat channel for task %r lost (EOF)",
+                    self._tag(), peer.task_id)
+                self._emit_liveness("lost", peer.task_id)
+                self._lost_tasks.add(peer.task_id)
+            return
+        peer.buf += data
+        while len(peer.buf) >= 4:
+            (beat,) = struct.unpack_from("<I", peer.buf)
+            if beat == P.HEARTBEAT_OBS:
+                # Telemetry frame multiplexed onto the beat stream:
+                # sentinel, u32 length, JSON payload.  Incomplete
+                # frames wait in peer.buf for the next drain.
+                if len(peer.buf) < 8:
+                    break
+                (ln,) = struct.unpack_from("<I", peer.buf, 4)
+                if ln > P.MAX_PRINT_LEN:
+                    log("tracker:%s oversized obs frame (%d bytes) from "
+                        "task %r; dropping the heartbeat channel",
+                        self._tag(), ln, peer.task_id)
+                    self._hb_forget(peer)
+                    return
+                if len(peer.buf) < 8 + ln:
+                    break
+                del peer.buf[:8 + ln]
+                peer.last = now   # a frame proves liveness like a beat
+                self.last_activity = time.monotonic()
+                if not peer.obs:
+                    # Live telemetry is not ported (ROADMAP A8): the
+                    # payload is dropped and beats are never echoed,
+                    # which a streaming worker reads as "no rtt
+                    # samples".
+                    peer.obs = True
+                    log("tracker:%s obs frames from task %r dropped (obs "
+                        "is not ported: ROADMAP A8)", self._tag(),
+                        peer.task_id)
+                continue
+            del peer.buf[:4]
+            if beat == P.HEARTBEAT_BYE:
+                peer.bye = True
+                self._hb_forget(peer)
+                self._emit_liveness("shutdown", peer.task_id)
+                return
+            peer.last = now
+            if peer.dead:
+                # Beats resumed after a dead verdict (a SIGCONT'd rank
+                # the supervisor has not reaped yet): record the flap;
+                # the supervisor's kill remains in flight.
+                peer.dead = False
+                log("tracker:%s task %r resumed heartbeats after a dead "
+                    "verdict", self._tag(), peer.task_id)
+                self._emit_liveness("alive", peer.task_id, resumed=1)
+                self._lost_tasks.discard(peer.task_id)
+
+    def _hb_mark_dead(self, peer: _HbPeer, phase: str, why: str) -> None:
+        """Deadline verdict: evict the corpse from the barrier and tell
+        the supervisor.  Re-notifies every miss budget while the verdict
+        stands, so a supervisor that skipped a kill (restart grace) gets
+        another chance instead of the job wedging."""
+        tracker = self._tracker
+        renotify = max(peer.period_s * tracker._hb_miss, 0.5)
+        now = time.monotonic()
+        if peer.dead and now - peer.notified < renotify:
+            return
+        first = not peer.dead
+        peer.dead = True
+        peer.notified = now
+        if first:
+            log("tracker:%s task %r declared dead by the heartbeat sweep "
+                "(%s)", self._tag(), peer.task_id, why)
+            self._emit_liveness(phase, peer.task_id, why=why)
+            self._lost_tasks.add(peer.task_id)
+            # Evict only on the FIRST verdict: no EOF means the hung
+            # process is still alive holding its sockets, so a parked
+            # registrant is provably the hung life's own.  A re-notify
+            # runs after the supervisor's kill — by then the task's
+            # NEXT life may already be parked, and closing its socket
+            # would abort the very relaunch the kill arranged.
+            self._evict_registrant(peer.task_id, why)
+        if tracker._on_dead is not None:
+            try:
+                tracker._on_dead(peer.task_id)
+            except Exception as e:  # noqa: BLE001 — detector must survive
+                log("tracker:%s on_dead callback failed: %s",
+                    self._tag(), e)
+
+    def _evict_registrant(self, task_id: str, why: str) -> None:
+        """Drop a dead task's PARKED rendezvous registrant so the round
+        re-opens (the hung-but-connected sibling of the EOF-based
+        registrant sweep: a SIGSTOP'd rank keeps its sockets open, so
+        only the heartbeat verdict can evict it)."""
+        with self._pending_lock:
+            if len(self._pending) >= self.n_workers:
+                return  # full round: the reply loop owns these sockets
+            lost = [r for r in self._pending if r.task_id == task_id]
+            if not lost:
+                return
+            self._pending = [r for r in self._pending
+                             if r.task_id != task_id]
+            if not self._pending:
+                self._round_started = None
+        for reg in lost:
+            log("tracker:%s evicted registrant task %r from the "
+                "rendezvous barrier (%s); the round re-opens for its "
+                "relaunch", self._tag(), reg.task_id, why)
+            try:
+                reg.sock.close()
+            except OSError:
+                pass
+
+    def sweep_registrants_once(self) -> None:
+        """One pass of the dead-registrant sweep: drop EOF'd parked
+        registrants so a partially-filled round re-opens instead of
+        wedging the survivors (see Tracker._sweep_registrants)."""
+        with self._pending_lock:
+            if not self._pending or len(self._pending) >= self.n_workers:
+                return
+            socks = [r.sock for r in self._pending]
+        # selectors (epoll/poll), not select.select: fds above
+        # FD_SETSIZE would make select raise on every pass and
+        # silently disable the sweep for big/long-lived jobs.
+        sel = selectors.DefaultSelector()
+        try:
+            for s in socks:
+                try:
+                    sel.register(s, selectors.EVENT_READ)
+                except (OSError, ValueError):
+                    continue  # closed under us; next sweep re-checks
+            ready = [key.fileobj for key, _ in sel.select(0)]
+        finally:
+            sel.close()
+        dead = set()
+        for s in ready:
+            try:
+                if s.recv(1, socket.MSG_PEEK) == b"":
+                    dead.add(s)
+            except OSError:
+                dead.add(s)
+        if not dead:
+            return
+        with self._pending_lock:
+            if len(self._pending) >= self.n_workers:
+                return  # round filled meanwhile: let it reply
+            lost = [r for r in self._pending if r.sock in dead]
+            self._pending = [r for r in self._pending
+                             if r.sock not in dead]
+            if not self._pending:
+                self._round_started = None
+        for reg in lost:
+            log("tracker:%s registrant task %r (cmd=%s) lost during "
+                "the rendezvous barrier; dropping it and re-opening "
+                "the round (its restart will re-register)",
+                self._tag(), reg.task_id, reg.cmd)
+            self._emit_liveness("lost", reg.task_id, barrier=1)
+            self._lost_tasks.add(reg.task_id)
+            try:
+                reg.sock.close()
+            except OSError:
+                pass
 
     # -- rendezvous ----------------------------------------------------
     def register(self, sock: socket.socket, cmd: str, task_id: str,
                  host: str, port: int) -> None:
         """Park one start/recover registrant in this job's rendezvous
         barrier (and complete the round if it fills)."""
+        self.last_activity = time.monotonic()
+        self._lost_tasks.discard(task_id)
+        if cmd == P.CMD_START and task_id in self._started_tasks:
+            # A mid-job relaunch re-registering: a restart event for
+            # the liveness timeline.
+            self._emit_liveness("relaunch", task_id)
         # Registered: the socket now waits on the barrier, not on a
         # half-read message — lift the handshake timeout.
         sock.settimeout(self._registrant_timeout)
@@ -157,6 +490,8 @@ class JobState:
                     pass
             self._pending = [r for r in self._pending
                              if r.task_id != task_id]
+            if not self._pending:
+                self._round_started = time.monotonic()
             self._pending.append(
                 _Registrant(sock, task_id, host, port, cmd))
             full = 0 < self.n_workers <= len(self._pending)
@@ -241,6 +576,8 @@ class JobState:
                     return  # raced: another thread already served it
                 regs = self._pending[:world]
                 self._pending = self._pending[world:]
+                self._round_started = (time.monotonic() if self._pending
+                                       else None)
             self._assign_ranks(regs)
             members = {r.task_id for r in regs}
             by_rank = {self._rank_of[r.task_id]: r for r in regs}
@@ -298,15 +635,44 @@ class Tracker:
     one job or several concurrent named jobs."""
 
     def __init__(self, n_workers: int, host: str = "127.0.0.1", port: int = 0,
-                 registrant_timeout_sec: float | None = None):
+                 watchdog_sec: float | None = None,
+                 on_stall: Optional[Callable[[set, set], None]] = None,
+                 registrant_timeout_sec: float | None = None,
+                 heartbeat_miss: float | None = None,
+                 on_dead: Optional[Callable[[str], None]] = None,
+                 job_gc_sec: float | None = None):
         """``n_workers`` is the DEFAULT job's world size (and the world
         assumed for a named job whose first registrant sent no world
         hint).
 
+        ``watchdog_sec``: if a rendezvous round stays *partially*
+        registered this long, the tracker calls ``on_stall(present_task_
+        ids, finished_task_ids)`` so the launcher can kill/restart the
+        silent workers — a hung (SIGSTOP'd, wedged) rank is then
+        replaced in seconds instead of holding the barrier for the full
+        link timeout.
+
         ``registrant_timeout_sec``: socket timeout applied to
         registered rendezvous sockets; it bounds the tracker's blocking
-        SENDS when a round completes, not the barrier wait itself.
-        Defaults to ``RABIT_TIMEOUT_SEC`` (else 600 s)."""
+        SENDS when a round completes, not the barrier wait itself (a
+        partially-filled round is bounded by the stall watchdog).
+        Defaults to ``RABIT_TIMEOUT_SEC`` (else 600 s).
+
+        ``heartbeat_miss`` / ``on_dead``: the proactive heartbeat
+        failure detector.  Workers launched with ``rabit_heartbeat_sec``
+        keep one persistent CMD_HEARTBEAT connection each; a worker
+        whose beats stop for ``heartbeat_miss`` periods (default 3, env
+        ``RABIT_HEARTBEAT_MISS``, at least 1) is declared dead: its
+        parked rendezvous registrant (if any) is evicted so the round
+        re-opens, the liveness transition lands in the job's timeline,
+        and ``on_dead(task_id)`` tells the supervisor to kill/relaunch
+        it — all without any collective op having to touch the corpse
+        first.
+
+        ``job_gc_sec`` (env ``RABIT_JOB_GC_SEC``, default 30): how long
+        a job must sit idle — no parked registrants, no live heartbeat
+        channels, every member holding a loss verdict or goodbye —
+        before the orphan sweep collects it."""
         self._default_world = n_workers
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -315,6 +681,8 @@ class Tracker:
         self.host, self.port = self._listener.getsockname()
         self._thread: threading.Thread | None = None
         self._stopped = False
+        self._watchdog_sec = watchdog_sec
+        self._on_stall = on_stall
         if registrant_timeout_sec is None:
             try:
                 registrant_timeout_sec = float(
@@ -322,10 +690,33 @@ class Tracker:
             except ValueError:
                 registrant_timeout_sec = 600.0
         self._registrant_timeout = max(float(registrant_timeout_sec), 1.0)
+        if heartbeat_miss is None:
+            try:
+                heartbeat_miss = float(
+                    os.environ.get("RABIT_HEARTBEAT_MISS", 3))
+            except ValueError:
+                heartbeat_miss = 3.0
+        self._hb_miss = max(float(heartbeat_miss), 1.0)
+        self._on_dead = on_dead
+        if job_gc_sec is None:
+            try:
+                job_gc_sec = float(os.environ.get("RABIT_JOB_GC_SEC", 30))
+            except ValueError:
+                job_gc_sec = 30.0
+        self._job_gc_sec = max(float(job_gc_sec), 0.5)
         self._jobs_lock = threading.Lock()
         self._jobs: dict[str, JobState] = {
             DEFAULT_JOB: JobState(self, DEFAULT_JOB, n_workers)}
         self._jobs_touched = 0     # jobs that ever admitted a worker
+        if watchdog_sec is not None and on_stall is not None:
+            threading.Thread(target=self._watchdog, daemon=True).start()
+        # Registrant-loss sweep: a worker that dies while PARKED in the
+        # rendezvous barrier must not keep holding a slot (see
+        # JobState.sweep_registrants_once); the same cadence runs job
+        # completion/orphan GC.
+        threading.Thread(target=self._sweep_registrants,
+                         daemon=True).start()
+        threading.Thread(target=self._hb_monitor, daemon=True).start()
 
     # -- job registry --------------------------------------------------
     def _default_job(self) -> JobState:
@@ -335,6 +726,13 @@ class Tracker:
     def _job_list(self) -> list[JobState]:
         with self._jobs_lock:
             return list(self._jobs.values())
+
+    def _live_jobs(self) -> list[JobState]:
+        """Jobs the background sweeps must watch: everything not done
+        (a heartbeat channel can exist before the job's first
+        registration is admitted)."""
+        with self._jobs_lock:
+            return [j for j in self._jobs.values() if not j.done]
 
     def _job_get(self, name: str) -> JobState | None:
         """The current live incarnation of a job, or None (unknown or
@@ -360,13 +758,17 @@ class Tracker:
             if not job.touched:
                 job.touched = True
                 self._jobs_touched += 1
+                job._events.append({
+                    "ts": time.time(), "name": "job", "phase": "created",
+                    "job": job.name, "world": job.n_workers})
                 log("tracker: job %r admitted (world %d)", job.name,
                     job.n_workers)
         return job
 
     def _finish_job(self, job: JobState, phase: str) -> None:
-        """Complete a job's lifecycle (unanimous goodbye): drop its
-        sockets and wake the serve loop if it was the last one."""
+        """Complete a job's lifecycle (unanimous goodbye or orphan GC):
+        drop its sockets and wake the serve loop if it was the last
+        one."""
         with self._jobs_lock:
             if job.done:
                 return
@@ -374,6 +776,9 @@ class Tracker:
         log("tracker:%s job %s (%d member(s), %d shutdown)",
             job._tag() or " [job default]", phase, len(job._members),
             len(job._shutdown_tasks))
+        job._events.append({"ts": time.time(), "name": "job",
+                            "phase": phase, "job": job.name,
+                            "world": job.n_workers})
         job.close()
         if self._service_done():
             self._wake_accept()
@@ -388,7 +793,9 @@ class Tracker:
             return all(j.done for j in self._jobs.values() if j.touched)
 
     def _wake_accept(self) -> None:
-        """Nudge the accept loop so it re-checks the exit condition."""
+        """Nudge the accept loop so it re-checks the exit condition —
+        job completion can happen on a sweep thread while run() is
+        blocked in accept()."""
         host = self.host if self.host not in ("0.0.0.0", "::") \
             else "127.0.0.1"
         try:
@@ -476,6 +883,13 @@ class Tracker:
         except OSError:
             pass
 
+    def note_dead(self, task_id: str, job: str | None = None) -> None:
+        """Supervisor-facing death notice (see JobState.note_dead).
+        ``job`` names the tenant (None = the default job)."""
+        j = self._job_get(job or DEFAULT_JOB)
+        if j is not None:
+            j.note_dead(task_id)
+
     def _close_all(self) -> None:
         try:
             self._listener.close()
@@ -483,6 +897,126 @@ class Tracker:
             pass
         for job in self._job_list():
             job.close()
+
+    def _watchdog(self) -> None:
+        """Fires on_stall when a rendezvous round sits partially filled
+        longer than watchdog_sec.  Restarting a merely-slow worker is
+        wasteful but safe (it reloads from its checkpoint), so the
+        launcher may use an aggressive bound in test/dev jobs."""
+        while not self._stopped:
+            time.sleep(min(0.2, self._watchdog_sec / 5))
+            for job in self._live_jobs():
+                with job._pending_lock:
+                    stalled = (
+                        job._round_started is not None
+                        and 0 < len(job._pending) < job.n_workers
+                        and time.monotonic() - job._round_started
+                        > self._watchdog_sec)
+                    if not stalled:
+                        continue
+                    present = {r.task_id for r in job._pending}
+                    finished = set(job._shutdown_tasks)
+                    # rearm: fire again only after another full period
+                    job._round_started = time.monotonic()
+                log("tracker:%s rendezvous stalled (%d/%d registered); "
+                    "notifying launcher", job._tag(), len(present),
+                    job.n_workers)
+                try:
+                    self._on_stall(present, finished)
+                except Exception as e:  # noqa: BLE001 — must survive
+                    log("tracker: on_stall callback failed: %s", e)
+
+    # How often parked rendezvous sockets are polled for death (and
+    # job completion / orphan GC is re-checked).
+    REGISTRANT_SWEEP_SEC = 0.5
+
+    def _sweep_registrants(self) -> None:
+        """Per-job dead-registrant sweep + the job lifecycle sweep
+        (completion backstop and the idle-orphan GC)."""
+        while not self._stopped:
+            time.sleep(self.REGISTRANT_SWEEP_SEC)
+            now = time.monotonic()
+            for job in self._live_jobs():
+                # One tenant's corrupt state must never kill the sweep
+                # for its co-tenants: failures are logged per job and
+                # the pass moves on.
+                try:
+                    job.sweep_registrants_once()
+                    if not job.touched:
+                        continue  # lifecycle starts at first admission
+                    if job.job_done():
+                        self._finish_job(job, "finished")
+                        continue
+                    why = job.orphaned(now)
+                    if why is not None:
+                        log("tracker:%s orphan GC: %s", job._tag(), why)
+                        self._finish_job(job, "orphan_gc")
+                except Exception as e:  # noqa: BLE001 — sweep survives
+                    log("tracker:%s registrant/lifecycle sweep failed: "
+                        "%s", job._tag(), e)
+            # Exit-condition backstop: job completion can happen while
+            # run() is blocked in accept().
+            if self._service_done():
+                self._wake_accept()
+
+    # -- heartbeat failure detector ------------------------------------
+    # How often the heartbeat sweep wakes to drain beats and check
+    # deadlines; detection latency adds at most one sweep period on top
+    # of the miss budget.
+    HB_SWEEP_SEC = 0.1
+
+    def _hb_monitor(self) -> None:
+        """Drain beats and run the deadline-based suspicion sweep,
+        across every job's heartbeat channels."""
+        while not self._stopped:
+            pairs: list[tuple[JobState, _HbPeer]] = []
+            for job in self._live_jobs():
+                with job._hb_lock:
+                    pairs.extend((job, p)
+                                 for p in job._hb_peers.values())
+            if not pairs:
+                time.sleep(self.HB_SWEEP_SEC)
+                continue
+            sel = selectors.DefaultSelector()
+            try:
+                for job, p in pairs:
+                    try:
+                        sel.register(p.sock, selectors.EVENT_READ,
+                                     (job, p))
+                    except (OSError, ValueError):
+                        continue  # closed under us; deadline still runs
+                try:
+                    ready = [key.data
+                             for key, _ in sel.select(self.HB_SWEEP_SEC)]
+                except OSError:
+                    # a registered fd closed mid-select (tracker
+                    # teardown race): the detector must outlive it
+                    ready = []
+            finally:
+                sel.close()
+            if self._stopped:
+                return  # teardown: sockets are closing under us; any
+                # drain from here would just log spurious EOFs
+            now = time.monotonic()
+            for job, p in ready:
+                try:
+                    job._hb_drain(p, now)
+                except Exception as e:  # noqa: BLE001 — see sweep note
+                    log("tracker:%s heartbeat drain failed for task %r: "
+                        "%s", job._tag(), p.task_id, e)
+            for job, p in pairs:
+                with job._hb_lock:
+                    if job._hb_peers.get(p.task_id) is not p:
+                        continue  # replaced (relaunch) or forgotten
+                if now - p.last > p.period_s * self._hb_miss:
+                    try:
+                        job._hb_mark_dead(
+                            p, "dead",
+                            f"no beat for {now - p.last:.2f}s (budget "
+                            f"{self._hb_miss:g} x {p.period_s:g}s)")
+                    except Exception as e:  # noqa: BLE001
+                        log("tracker:%s heartbeat verdict failed for "
+                            "task %r: %s", job._tag(), p.task_id, e)
 
     # -- command dispatch ----------------------------------------------
     def _handle(self, sock: socket.socket) -> None:
@@ -540,12 +1074,22 @@ class Tracker:
         if cmd == P.CMD_SHUTDOWN:
             job = self._job_get(job_name)
             if job is not None:
+                job.last_activity = time.monotonic()
                 if task_id in job._rank_of:
                     job._shutdown_tasks.add(task_id)
                 if job.job_done():
                     self._finish_job(job, "finished")
             sock.close()
             return
+        if cmd == P.CMD_HEARTBEAT:
+            period_ms = P.recv_u32(sock)
+            job = self._job_get(job_name)
+            if job is None:
+                sock.close()
+                return
+            job.last_activity = time.monotonic()
+            job._hb_register(sock, task_id, period_ms)
+            return  # the connection stays open for the beat stream
         if cmd in (P.CMD_START, P.CMD_RECOVER):
             host = P.recv_str(sock, max_len=P.MAX_HELLO_STR)
             port = P.recv_u32(sock)

@@ -34,7 +34,9 @@ def _worker(mode: str, out_dir: str) -> int:
     """``model_recover``'s iteration (a MAX allreduce, a broadcast, a SUM
     allreduce, a checkpoint), NITER times, through the port's api.
     ``mode`` "sigkill": rank 1's first life kills itself with SIGKILL
-    after its first checkpoint; "fail": rank 2 exits with code 3 there."""
+    after its first checkpoint; "fail": rank 2 exits with code 3 there;
+    "sigstop": rank 1 stops itself with SIGSTOP once, behind a marker
+    file beside ``out_dir``, after iteration 1's MAX allreduce."""
     import numpy as np
 
     import rabit_tpu_torch as rt
@@ -53,6 +55,11 @@ def _worker(mode: str, out_dir: str) -> int:
         a = np.arange(100, dtype=np.float32) + rank + it
         rt.allreduce(a, rt.MAX)
         assert (a == np.arange(100, dtype=np.float32) + world - 1 + it).all()
+        marker = out_dir + ".stopped"
+        if mode == "sigstop" and rank == 1 and it == 1 \
+                and not os.path.exists(marker):
+            open(marker, "w").close()
+            os.kill(os.getpid(), signal.SIGSTOP)  # hung until killed
         obj = rt.broadcast({"iter": it} if rank == it % world else None,
                            it % world)
         assert obj == {"iter": it}, obj
@@ -224,8 +231,89 @@ def test_cli_runs_the_job_through_a_death(out):
     _check_finished(_lives(out), {2: (1, 1, 0)}, job="tenant-y")
 
 
+def _cli_bounded(args, env, limit):
+    """The port's launcher CLI in a session of its own, killed whole
+    (a stopped worker too) if it outlives ``limit`` seconds."""
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rabit_tpu_torch.tracker.launch_local"]
+        + args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _out, err = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"the launch outlived its {limit} s limit")
+    return proc.returncode, err, time.monotonic() - t0
+
+
+def test_sigstop_rank_is_evicted_by_heartbeat(out):
+    """``tests/test_ckpt.py``'s heartbeat case: rank 1 stops itself
+    (SIGSTOP) with the default 600 s link timeout, so only the
+    heartbeat can free the survivors.  The tracker's verdict kills it,
+    its next life (same ``RABIT_NUM_TRIAL``, ``RABIT_RELAUNCH`` 1)
+    resumes from version 1, and the job ends well under a minute."""
+    code, err, secs = _cli_bounded(
+        ["-n", str(WORLD), "--heartbeat", "0.3", "--"]
+        + _cmd("sigstop") + [str(out)], dict(os.environ), 90)
+    assert code == 0, err[-3000:]
+    assert os.path.exists(f"{out}.stopped")
+    assert secs < 60, secs
+    assert re.search(r"heartbeat: worker \d declared dead; killing for "
+                     r"restart", err), err[-3000:]
+    assert re.search(r"task '\d' declared dead by the heartbeat sweep",
+                     err)
+    _check_finished(_lives(out), {1: (0, 1, 1)})
+
+
+def test_sigstop_rank_is_replaced_by_watchdog(out):
+    """``tests/test_recovery.py``'s watchdog case: with a 3 s link
+    timeout the survivors error out of the op and park in the recover
+    round, which the stopped rank never joins; the 2 s stall watchdog
+    names it and the launcher kills it for a free restart."""
+    code, err, secs = _cli_bounded(
+        ["-n", str(WORLD), "--watchdog", "2", "--"]
+        + _cmd("sigstop") + [str(out)],
+        dict(os.environ, RABIT_TIMEOUT_SEC="3"), 90)
+    assert code == 0, err[-3000:]
+    assert os.path.exists(f"{out}.stopped")
+    assert secs < 60, secs
+    assert re.search(r"watchdog: worker \d is hung; killing for restart",
+                     err), err[-3000:]
+    _check_finished(_lives(out), {1: (0, 1, 1)})
+
+
+@pytest.mark.parametrize("flag,key", [("--watchdog", "watchdog_sec"),
+                                      ("--heartbeat", "heartbeat_sec")])
+def test_liveness_flags_are_served(flag, key, monkeypatch):
+    """``--watchdog``/``--heartbeat`` reach ``launch`` as seconds."""
+    from rabit_tpu_torch.tracker import launch_local
+
+    seen = {}
+    monkeypatch.setattr(launch_local, "launch",
+                        lambda *a, **kw: seen.update(kw) or 0)
+    with pytest.raises(SystemExit) as err:
+        launch_local.main(["-n", "2", flag, "1.5", "python", "w.py"])
+    assert err.value.code == 0
+    assert seen[key] == 1.5
+
+
+@pytest.mark.parametrize("key", ["watchdog_sec", "heartbeat_sec"])
+def test_liveness_launch_options_are_served(key, out):
+    """``launch`` takes both options; ``heartbeat_sec`` reaches the
+    workers as ``RABIT_HEARTBEAT_SEC``.  The workers exit at once with a
+    code that says what they saw, which ends the job with it."""
+    from rabit_tpu_torch.tracker.launch_local import launch
+
+    check = ("import os, sys; sys.exit(7 if os.environ.get("
+             "'RABIT_HEARTBEAT_SEC') == '1.5' else 5)")
+    code = launch(2, [sys.executable, "-c", check], **{key: 1.5})
+    assert code == (7 if key == "heartbeat_sec" else 5)
+
+
 @pytest.mark.parametrize("flag,item", [
-    ("--watchdog", "A3b"), ("--heartbeat", "A3b"), ("--ckpt-dir", "A4b"),
+    ("--ckpt-dir", "A4b"),
     ("--min-workers", "A4b"), ("--max-workers", "A4b"),
     ("--state-dir", "A4b"), ("--obs-dir", "A8"), ("--obs-port", "A8"),
     ("--trace-dir", "A8")])
@@ -240,8 +328,8 @@ def test_refused_flags(flag, item, capsys):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("watchdog_sec", "A3b"), ("heartbeat_sec", "A3b"), ("ckpt_dir", "A4b"),
-    ("min_workers", "A4b"), ("max_workers", "A4b"), ("state_dir", "A4b"),
+    ("ckpt_dir", "A4b"), ("min_workers", "A4b"), ("max_workers", "A4b"),
+    ("state_dir", "A4b"),
     ("obs_dir", "A8"), ("obs_port", "A8"), ("trace_dir", "A8")])
 def test_refused_launch_options(key, item):
     """Each raises before a tracker or a worker starts."""

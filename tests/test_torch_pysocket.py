@@ -453,7 +453,8 @@ def test_live_schedule_directive_is_refused():
     ("rabit_synth_plan", "plan.json", "A8"),
     ("rabit_wire_codec", "int8", "A8"), ("rabit_wire_dtype", "bf16", "A8"),
     ("rabit_codec_block", "64", "A8"), ("rabit_codec_impl", "numpy", "A8"),
-    ("rabit_heartbeat_sec", "1", "A3b"), ("rabit_chaos", "reset@io:1", "A8"),
+    ("rabit_codec_min_bytes", "4096", "A8"),
+    ("rabit_chaos", "reset@io:1", "A8"),
     ("rabit_obs", "1", "A8"), ("rabit_obs_dir", "obs", "A8"),
     ("rabit_trace_sample", "4", "A8"), ("rabit_trace_dir", "trace", "A8"),
     ("rabit_directory", "127.0.0.1:1", "A8"),

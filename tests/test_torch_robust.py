@@ -629,7 +629,7 @@ def test_merge_word_matches_reference():
     ("rabit_ckpt_dir", "/tmp/ckpt", "A4b"), ("rabit_ckpt_keep", "3", "A4b"),
     ("rabit_ckpt_writers", "2", "A4b"), ("rabit_elastic", "1", "A4b"),
     ("rabit_elastic", "true", "A4b"), ("rabit_adapt", "yes", "A8"),
-    ("rabit_heartbeat_sec", "1", "A3b")])
+    ("rabit_wire_codec", "int8", "A8")])
 def test_unported_knobs_raise(key, value, item):
     """Each knob outside the slice raises before any connection is tried
     (the tracker port is closed)."""

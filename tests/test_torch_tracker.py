@@ -7,6 +7,7 @@ import dataclasses
 import random
 import socket
 import threading
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -391,8 +392,8 @@ def test_stray_client(pkg, case):
         finish(tr, pkg)
 
 
-@pytest.mark.parametrize("cmd", ["rescale", "epoch", "heartbeat", "formbar",
-                                 "jaxsvc", "bogus"])
+@pytest.mark.parametrize("cmd", ["rescale", "epoch", "formbar", "jaxsvc",
+                                 "bogus"])
 def test_commands_outside_the_slice_are_refused(cmd, capsys):
     """Commands the port's tracker does not serve get the reference's
     treatment of an unknown command: logged, closed, no reply, and no
@@ -405,6 +406,37 @@ def test_commands_outside_the_slice_are_refused(cmd, capsys):
     finally:
         finish(tr, "torch")
     assert f"unknown command {cmd!r}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_heartbeat_command_is_served(pkg, capsys):
+    """``heartbeat`` is served: the channel stays open after the hello
+    and its period, the task is alive on the job's timeline, and a bye
+    ends it as a clean shutdown, with no unknown-command log."""
+    tr = start_tracker(pkg, 1)
+    try:
+        sock = socket.create_connection(("127.0.0.1", tr.port),
+                                        timeout=TIMEOUT)
+        PROTOCOLS[pkg].send_hello(sock, "heartbeat", "0", 1)
+        PROTOCOLS[pkg].send_u32(sock, 100)
+        PROTOCOLS[pkg].send_u32(sock, 1)
+        sock.settimeout(0.3)
+        with pytest.raises(socket.timeout):
+            sock.recv(1)              # open: no reply, no close
+        PROTOCOLS[pkg].send_u32(sock, PROTOCOLS[pkg].HEARTBEAT_BYE)
+        events = tr._default_job()._events
+        deadline = time.monotonic() + TIMEOUT
+        while len(events) < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert [(e["phase"], e["task"]) for e in events
+                if e.get("name") == "liveness"] == [("alive", "0"),
+                                                    ("shutdown", "0")]
+        sock.close()
+        replies = run_round(tr.port, [Client("0")])
+        assert replies["0"].rank == 0
+    finally:
+        finish(tr, pkg)
+    assert "unknown command" not in capsys.readouterr().err
 
 
 def test_worker_env_matches_reference():
