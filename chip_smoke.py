@@ -179,6 +179,29 @@ Phases, each raising on failure (the script then exits non-zero):
     relaunch replays seqs 0-1 as in phase 19.  It prints the stop ->
     verdict or stall -> kill -> relaunched life's first op times and
     each survivor's LinkError -> resumed op.
+21. (after 20) the durable checkpoint tier at world 3: the port's
+    ``launch_local.launch(3, ..., ckpt_dir=..., max_restarts=3)`` (this
+    script with ``--phase21-rank``), every rank a writer (the default
+    1 + ``rabit_local_replica``) into one fresh store directory, whose
+    filesystem type it prints.  Every rank SIGKILLs itself once right
+    after a commit, once all three have made it (marker files), so no
+    in-memory replica survives and the relaunched lives must resume
+    from disk.  (a) ``kmeans.run`` on the dense16 tier, 3 iterations,
+    ``heartbeat_sec=0.5``, every rank killed after iteration 2's
+    commit: the relaunched lives load version 2 from disk, served by
+    one holder, and run iteration 3 alone; centroids bit for bit phase
+    17's, counts exact against phase 17's oracle, B1 launches by rank
+    and life [2, 1].  (b) ``boosting.train``, 2 rounds, float32 kernel,
+    every rank killed after round 1's commit: the relaunched lives
+    resume at version 1 from disk with the cuts in the model (no cut
+    broadcast) and train round 2; trees and log-loss bit for bit phase
+    17's float32-kernel run, B3 launches by life against the level
+    chunks.  Both stores end valid: every blob's CRC, every manifest
+    parses, at most ``rabit_ckpt_keep`` blobs a writer, no tmp file.
+    It prints each commit's persist time and bytes on each writer, the
+    last death -> every relaunch registered, each relaunch's start ->
+    cold load (disk read, the whole cold path) -> first fresh op, and
+    each job's time against phase 17's.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -2255,7 +2278,9 @@ def world3_phase(torch, km, kk):
                                  - sum(op[1] for op in g["ops"]))
                              for g in gb3["f32 kernel"]),
         ring_stats_ms=[[op[1] * 1e3 for op in k["ops"]
-                        if op[0] == stats_bytes] for k in km3])
+                        if op[0] == stats_bytes] for k in km3],
+        kmeans_walls=[k["split"]["wall"] for k in km3],
+        f32_walls=[g["split"]["wall"] for g in gb3["f32 kernel"]])
 
 
 def phase18_rank(task, ports):
@@ -2602,10 +2627,9 @@ P19_B1_LIVES = {0: [3], 1: [1, 2], 2: [3, 0]}
 P20_RUNS = {"kmeans": (1, 1, 0), "gbdt": (0, 1, 2)}
 P20_HEARTBEAT_SEC = 0.5
 # The watchdog rearms every period while the recover round waits for the
-# relaunched rank, and the stall killer spares a life only for its first
-# period, so a relaunch must register within about two periods.  Here a
-# rank registers 8-10 s after its process starts (torch's import), which
-# 5 s periods would leave no margin for: 10 s.
+# relaunched rank; the stall killer spares a life until the tracker has
+# seen it register (launch_local.START_GRACE_SEC at most), so the period
+# only bounds how long a hung rank holds the round: 10 s.
 P20_WATCHDOG_SEC = 10.0
 # The survivors' link timeout in (b): at least this many times the
 # longest wait in one collective of phase 17's float32-kernel run, and
@@ -2739,10 +2763,83 @@ def _recovery_probe(eng, rec, dump, stop=None):
     eng.load_checkpoint = load_checkpoint
 
 
+def _durable_probe(eng, rec, dump, which, out_dir):
+    """Phase 21's additions to ``_recovery_probe`` on the live engine:
+    every persist of this rank's store (version, ms, bytes on disk), the
+    cold load's parts (the disk read, the whole cold path with its two
+    agreement rounds, the serve and the install, the serving rank), and
+    the kill-all: right after the commit of ``P21_KILL[which]`` this
+    life leaves a marker, waits until every rank has left one (every
+    rank has committed that version), dumps its record and SIGKILLs
+    itself; the markers keep the next lives from dying again."""
+    store = eng._ckpt_store
+    if store is None:
+        raise RuntimeError("phase 21's ranks need the launcher's ckpt_dir")
+    rec.update(persists=[], cold=None, store=store.root)
+    marker = os.path.join(out_dir, f"killed.{which}.{eng.rank}")
+    real = {name: getattr(eng, name) for name in (
+        "_try_disk_read", "_cold_checkpoint_load", "_bcast_impl",
+        "checkpoint")}
+    real_persist, cold = store.persist, {}
+
+    def persist(version, world, global_blob, locals_=None):
+        t0 = time.perf_counter()
+        path = real_persist(version, world, global_blob, locals_)
+        rec["persists"].append(dict(
+            version=version, ms=(time.perf_counter() - t0) * 1e3,
+            bytes=os.path.getsize(path), at=since_start()))
+        return path
+
+    def try_disk_read():
+        t0 = time.perf_counter()
+        dc = real["_try_disk_read"]()
+        cold.update(disk_ms=(time.perf_counter() - t0) * 1e3,
+                    disk_version=None if dc is None else dc.version)
+        return dc
+
+    def cold_load(i_am_loader):
+        cold.clear()
+        cold["active"], start = True, since_start()
+        try:
+            return real["_cold_checkpoint_load"](i_am_loader)
+        finally:
+            del cold["active"]
+            end = since_start()
+            rec["cold"] = dict(cold, start=start, end=end,
+                               ms=(end - start) * 1e3, version=eng._version)
+
+    def bcast(data, root):
+        out = real["_bcast_impl"](data, root)
+        if cold.get("active"):
+            cold.update(root=root, nbytes=len(out))
+        return out
+
+    def checkpoint(*a, **k):
+        real["checkpoint"](*a, **k)
+        if eng._version == P21_KILL[which] and not os.path.exists(marker):
+            open(marker, "w").close()
+            deadline = time.monotonic() + W3_TIMEOUT
+            while time.monotonic() < deadline and len(
+                    [n for n in os.listdir(out_dir)
+                     if n.startswith(f"killed.{which}.")]) < W3_RANKS:
+                time.sleep(0.005)
+            rec["sigkilled"] = eng._version
+            rec["marks"]["killed"] = since_start()
+            dump()
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    store.persist = persist
+    eng._try_disk_read = try_disk_read
+    eng._cold_checkpoint_load = cold_load
+    eng._bcast_impl = bcast
+    eng.checkpoint = checkpoint
+
+
 def robust_rank(phase, which, out_dir):
-    """One rank process of phase 19 or 20 (``chip_smoke.py
-    --phase19-rank|--phase20-rank WHICH DIR``), started, and restarted
-    after a kill-point or a kill, by the port's ``launch_local.launch``.
+    """One rank process of phase 19, 20 or 21 (``chip_smoke.py
+    --phase19-rank|--phase20-rank|--phase21-rank WHICH DIR``), started,
+    and restarted after a kill-point or a kill, by the port's
+    ``launch_local.launch``.
     It joins through the tracker URI the launcher puts in its
     environment (no ``rabit_engine``: the autodetect picks ``pyrobust``)
     and runs phase 17's job on its third of phase 17's rows:
@@ -2750,9 +2847,10 @@ def robust_rank(phase, which, out_dir):
     the float32 kernel (B3).  A life writes its record (collectives,
     recovery episodes, launches, times since the process started and
     that origin on the monotonic clock, results) to DIR, also just
-    before its kill-point ends it or its phase-20 stop hangs it.  Phase
-    19 bounds the links at W3_TIMEOUT; phase 20 leaves the timeout to
-    the engine's default or ``RABIT_TIMEOUT_SEC``."""
+    before its kill-point ends it, its phase-20 stop hangs it or its
+    phase-21 kill ends it (``_durable_probe``).  Phases 19 and 21 bound
+    the links at W3_TIMEOUT; phase 20 leaves the timeout to the engine's
+    default or ``RABIT_TIMEOUT_SEC``."""
     marks = {}
     import torch
 
@@ -2773,7 +2871,7 @@ def robust_rank(phase, which, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rabit_tpu_torch.init(**({"rabit_timeout_sec": W3_TIMEOUT}
-                            if phase == "19" else {}))
+                            if phase in ("19", "21") else {}))
     marks["init"] = since_start()
     eng = engine_mod.get_engine()
     rank = eng.rank
@@ -2794,6 +2892,8 @@ def robust_rank(phase, which, out_dir):
     if phase == "20":
         stop = P20_RUNS[which] + (os.path.join(out_dir, "stopped." + which),)
     _recovery_probe(eng, rec, dump, stop)
+    if phase == "21":
+        _durable_probe(eng, rec, dump, which, out_dir)
     if which == "kmeans":
         data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
                                picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
@@ -2864,7 +2964,7 @@ def _children_with(marker):
 
 def _launch_ranks(phase, which, out_dir, **kw):
     """The port's ``launch_local.launch`` of three rank processes of
-    phase 19 or 20 (``kw`` as ``launch`` takes it), bounded: past
+    phase 19, 20 or 21 (``kw`` as ``launch`` takes it), bounded: past
     W3_TIMEOUT its workers are killed (the launcher then returns their
     code) and the phase fails.  Returns (launcher's code, seconds)."""
     import threading
@@ -3384,6 +3484,278 @@ def _hang_timeline(which, run):
                 f"{e['serving'] * 1e3:.3f} ms)")
 
 
+# ------------------------------------------- the durable tier at world 3
+# Phase 21's kill-alls: every rank SIGKILLs itself once right after the
+# commit of this version, once all three have committed it.
+P21_KILL = {"kmeans": 2, "gbdt": 1}
+P21_KEEP = 3                       # rabit_ckpt_keep's default
+P21_MAX_RESTARTS = 3
+# B1 launches by life: the first life runs iterations 1-2, the second,
+# loading version 2 from disk, iteration 3
+P21_B1_LIVES = [2, 1]
+
+
+def fs_type(path):
+    """The filesystem type (and mount point) that ``path`` sits on: the
+    longest mount point in /proc/mounts that holds it."""
+    path = os.path.realpath(path)
+    best = ("", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _dev, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    return f"{best[1]} (mounted at {best[0]})"
+
+
+class _RegLog:
+    """Times, on the monotonic clock, of every start/recover
+    registration the port's tracker takes during one launch (it runs in
+    this process, inside ``launch``)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from rabit_tpu_torch.tracker import tracker as tr
+
+        self._cls, self._real = tr.JobState, tr.JobState.register
+        real, events = self._real, self.events
+
+        def register(job, sock, cmd, task_id, host, port):
+            events.append((time.monotonic(), task_id, cmd))
+            return real(job, sock, cmd, task_id, host, port)
+        tr.JobState.register = register
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.register = self._real
+
+
+def _check_store(which, root, final_version):
+    """The store after a phase-21 job: every candidate blob CRC-valid,
+    every manifest parses, the newest P21_KEEP versions and no other on
+    each of the three writers, no tmp file left.  Returns the scan."""
+    from rabit_tpu_torch.ckpt import CheckpointStore
+
+    names = os.listdir(root)
+    for name in (n for n in names if n.startswith("manifest")):
+        with open(os.path.join(root, name)) as f:
+            json.load(f)
+    scan = CheckpointStore(root, rank=W3_RANKS).scan()
+    per_writer = {}
+    for e in scan:
+        per_writer.setdefault(e["writer"], []).append(e["version"])
+    want = list(range(final_version, max(final_version - P21_KEEP, 0), -1))
+    if (not all(e["valid"] for e in scan)
+            or sorted(per_writer) != list(range(W3_RANKS))
+            or any(sorted(v, reverse=True) != want
+                   for v in per_writer.values())
+            or any(".tmp." in n for n in names)):
+        raise AssertionError(f"phase 21 {which}: store {sorted(names)}, "
+                             f"scan {scan}")
+    return scan
+
+
+def _check_lives(which, lives):
+    """Two lives a rank: the first killed right after P21_KILL[which]'s
+    commit, the second relaunched (same RABIT_NUM_TRIAL) and resumed at
+    that version through the cold path, from its disk; nothing replayed.
+    Returns the rank that served the disk version."""
+    kill = P21_KILL[which]
+    got = {r: len(lives.get(r, [])) for r in range(W3_RANKS)}
+    if got != {r: 2 for r in range(W3_RANKS)}:
+        raise AssertionError(f"phase 21 {which}: lives by rank {got}, "
+                             f"want 2 each")
+    roots = set()
+    for rank, recs in sorted(lives.items()):
+        first, second = recs
+        cold = second["cold"] or {}
+        if (first["engine"] != "PyRobustEngine" or first["done"]
+                or first.get("sigkilled") != kill or first["relaunched"]
+                or first.get("start_version") != 0
+                or not second["done"] or "sigkilled" in second
+                or not second["relaunched"]
+                or (second["trial"], second["relaunch"]) != (0, 1)
+                or second.get("start_version") != kill
+                or cold.get("version") != kill
+                or cold.get("disk_version") != kill
+                or any(o["replayed"] for r in recs for o in r["ops"])):
+            summary = [(r["trial"], r["relaunch"], r["done"],
+                        r.get("sigkilled"), r["relaunched"],
+                        r.get("start_version")) for r in recs]
+            raise AssertionError(f"phase 21 {which} rank {rank}: lives "
+                                 f"{summary}, cold load {cold}")
+        roots.add(cold.get("root"))
+    if len(roots) != 1 or None in roots:
+        raise AssertionError(f"phase 21 {which}: served by {roots}")
+    return roots.pop()
+
+
+def phase21(torch, w3):
+    """Phase 21: k-means and GBDT at world 3 over ``pyrobust`` with the
+    durable tier, every rank killed once right after a commit, so the
+    relaunched world resumes from disk (see ``_durable_probe``).
+    Returns B1's and B3's launches by rank and life."""
+    from rabit_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libs = [_build.library_path(n) for n in ("kmeans_stats_dense",
+                                             "histogram")]
+    stamps = [p.stat().st_mtime_ns for p in libs]
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"[21] the durable tier at world {W3_RANKS}: "
+            f"launch_local.launch({W3_RANKS}, ..., ckpt_dir=..., "
+            f"max_restarts={P21_MAX_RESTARTS}); every rank a writer, "
+            f"rabit_ckpt_keep {P21_KEEP}; the store on {fs_type(tmp)}; "
+            f"k-means dense16 {MAIN_ROWS} x 256, {W3_KM_ITERS} iterations, "
+            f"heartbeat_sec={P20_HEARTBEAT_SEC}, every rank killed after "
+            f"version {P21_KILL['kmeans']}'s commit; boosting.train "
+            f"{GBDT_ROWS} x {GBDT_FEATURES}, {W3_GB_ROUNDS} rounds, float32 "
+            f"kernel, every rank killed after version {P21_KILL['gbdt']}'s")
+        for which in P21_KILL:
+            store = os.path.join(tmp, "ckpt." + which)
+            kw = dict(ckpt_dir=store, max_restarts=P21_MAX_RESTARTS)
+            if which == "kmeans":
+                kw["heartbeat_sec"] = P20_HEARTBEAT_SEC
+            with _RegLog() as rl:
+                code, secs = _launch_ranks("21", which, tmp, **kw)
+            lives = _rank_lives(tmp, which)
+            if code != 0:
+                raise AssertionError(f"phase 21 {which}: the launcher "
+                                     f"returned {code}")
+            root = _check_lives(which, lives)
+            scan = _check_store(which, store,
+                                W3_KM_ITERS if which == "kmeans"
+                                else W3_GB_ROUNDS)
+            result[which] = dict(lives=lives, seconds=secs,
+                                 regs=list(rl.events))
+            log(f"    {which}: launcher returned 0 in {secs:.1f} s; two "
+                f"lives a rank; the relaunched world loaded version "
+                f"{P21_KILL[which]} from disk, served by rank {root}; store "
+                f"valid ({len(scan)} blobs, {P21_KEEP} a writer)")
+    if [p.stat().st_mtime_ns for p in libs] != stamps:
+        raise AssertionError("phase 21: a rank process rebuilt a kernel")
+
+    # (a) k-means
+    lives = result["kmeans"]["lives"]
+    want_cent = np.asarray(w3["centroids"], np.float32)
+    oracle = np.asarray(w3["oracle_counts"])
+    b1 = {}
+    for rank, recs in sorted(lives.items()):
+        cent = np.asarray(recs[-1]["centroids"], np.float32)
+        if not np.array_equal(cent, want_cent):
+            raise AssertionError(
+                f"phase 21 k-means rank {rank}: final centroids off phase "
+                f"17's by {float(np.abs(cent - want_cent).max())}")
+        for r in recs:
+            for op in (o for o in r["ops"] if "counts" in o):
+                if op["counts"] != oracle[op["version"]].tolist():
+                    raise AssertionError(
+                        f"phase 21 k-means rank {rank}: counts at version "
+                        f"{op['version']} off the oracle's")
+        if recs[-1]["tiers"] != ["dense16"]:
+            raise AssertionError(f"phase 21 k-means rank {rank}: staged "
+                                 f"{recs[-1]['tiers']}")
+        b1[rank] = [r["launches"]["kmeans_stats_dense"] for r in recs]
+        if b1[rank] != P21_B1_LIVES or any(
+                r["launches"]["kmeans_stats_ell"] for r in recs):
+            raise AssertionError(f"phase 21 k-means rank {rank}: B1 "
+                                 f"launches by life {b1[rank]}, want "
+                                 f"{P21_B1_LIVES}")
+    log(f"    k-means: final centroids on every rank bit for bit phase "
+        f"17's; counts of every iteration each life ran equal the "
+        f"oracle's; B1 launches by rank and life "
+        f"{[b1[r] for r in range(W3_RANKS)]}")
+    _durable_times("kmeans", result["kmeans"], w3["kmeans_walls"])
+
+    # (b) GBDT
+    lives = result["gbdt"]["lives"]
+    finals = [lives[r][-1] for r in range(W3_RANKS)]
+    trees = finals[0]["trees"]
+    if any(f["trees"] != trees for f in finals) or \
+            trees != w3["f32_trees"]:
+        raise AssertionError("phase 21 GBDT: the trees differ from phase "
+                             "17's float32-kernel trees")
+    n = sum(f["rows"] for f in finals)
+    losses = [sum(f["loss_sums"][i] for f in finals) / n
+              for i in range(W3_GB_ROUNDS)]
+    if losses != w3["f32_losses"]:
+        raise AssertionError(f"phase 21 GBDT: log-loss {losses} vs phase "
+                             f"17's {w3['f32_losses']}")
+    second_ops = [[(o["kind"], o["version"], o["seq"], o["nbytes"])
+                   for o in lives[r][1]["ops"]] for r in range(W3_RANKS)]
+    if any(ops != second_ops[0] for ops in second_ops) or any(
+            o[0] != "allreduce" or o[1] != P21_KILL["gbdt"]
+            for o in second_ops[0]):
+        raise AssertionError(f"phase 21 GBDT: the relaunched lives' ops "
+                             f"{second_ops}")
+    chunks = finals[0]["level_chunks"]
+    b3 = {r: [life["launches"]["gbdt_hist"] for life in lives[r]]
+          for r in range(W3_RANKS)}
+    want_b3 = [sum(chunks[0]), sum(chunks[1])]
+    if any(b3[r] != want_b3 for r in range(W3_RANKS)) or any(
+            life["launches"]["kmeans_stats_dense"]
+            for recs in lives.values() for life in recs):
+        raise AssertionError(f"phase 21 GBDT: B3 launches by rank and life "
+                             f"{b3}, level chunks give {want_b3}")
+    log(f"    GBDT: trees node for node and log-loss "
+        f"{[round(v, 6) for v in losses]} bit for bit phase 17's float32 "
+        f"kernel; the relaunched lives issued only version-1 allreduces "
+        f"(no cuts broadcast, no vote); B3 launches by rank and life "
+        f"{[b3[r] for r in range(W3_RANKS)]} (level chunks {chunks})")
+    _durable_times("gbdt", result["gbdt"], w3["f32_walls"])
+    log(f"    phase 21 wall {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans_stats_dense=[b1[r] for r in range(W3_RANKS)],
+                gbdt_hist=[b3[r] for r in range(W3_RANKS)])
+
+
+def _durable_times(which, run, p17_walls):
+    """Phase 21's times: each commit's persist on each writer; the last
+    death -> every relaunch registered; each relaunch's start -> cold
+    load -> first fresh op; the job against phase 17's."""
+    lives = run["lives"]
+    for rank, recs in sorted(lives.items()):
+        for i, r in enumerate(recs):
+            per = ", ".join(f"v{p['version']} {p['ms']:.3f} ms "
+                            f"{p['bytes']} B" for p in r["persists"])
+            log(f"      {which} rank {rank} life {i + 1}: persists {per}")
+    deaths = sorted(recs[0]["t0"] + recs[0]["marks"]["killed"]
+                    for recs in lives.values())
+    regs = [(t, task, cmd) for t, task, cmd in run["regs"]
+            if t > deaths[-1]]
+    log(f"    {which}: the three deaths within "
+        f"{(deaths[-1] - deaths[0]) * 1e3:.3f} ms; last death -> "
+        + ", ".join(f"task {task} registered ({cmd}) +{t - deaths[-1]:.3f} s"
+                    for t, task, cmd in regs)
+        + " (the tracker's orphan GC needs 30 s of idleness)")
+    for rank, recs in sorted(lives.items()):
+        r = recs[1]
+        c, m = r["cold"], r["marks"]
+        fresh = [o for o in r["ops"] if not o["replayed"]]
+        log(f"      {which} rank {rank} relaunch: start "
+            f"+{r['t0'] - deaths[-1]:.3f} s after the last death; from its "
+            f"start: torch {m['torch']:.3f} s, CUDA {m['cuda']:.3f} s, "
+            f"registered (init) {m['init']:.3f} s, rows {m['data']:.3f} s, "
+            f"cold load {c['start']:.3f} -> {c['end']:.3f} s ({c['ms']:.3f}"
+            f" ms: disk read {c['disk_ms']:.3f} ms of v{c['disk_version']}, "
+            f"{c['nbytes']} B served by rank {c['root']}), "
+            f"{'staged' if which == 'kmeans' else 'binned'} "
+            f"{m['staged']:.3f} s, first fresh op "
+            f"{fresh[0]['issued'] if fresh else float('nan'):.3f} s, done "
+            f"{m['end']:.3f} s")
+    runs = [[round(r["marks"]["end" if "end" in r["marks"] else "killed"]
+                   - r["marks"]["data"], 3) for r in recs]
+            for _rank, recs in sorted(lives.items())]
+    log(f"    {which}: the job {run['seconds']:.1f} s under the launcher "
+        f"(process starts and the kill-all included); by rank, each "
+        f"life's run from its rows to its end or its kill {runs} s; phase "
+        f"17's run() by rank {[round(x, 3) for x in p17_walls]} s")
+
+
 def main() -> int:
     import torch
 
@@ -3857,6 +4229,14 @@ def main() -> int:
         if line["name"] in p20:
             line["phase20_launches_by_rank_and_life"] = p20[line["name"]]
     log(f"    phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # 21. the durable tier at world 3: every rank killed, resumed from disk
+    t0 = time.perf_counter()
+    p21 = phase21(torch, w3)
+    for line in lines:
+        if line["name"] in p21:
+            line["phase21_launches_by_rank_and_life"] = p21[line["name"]]
+    log(f"    phase 21 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -3872,6 +4252,7 @@ if __name__ == "__main__":
         sys.exit(world3_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     if sys.argv[1:2] == ["--phase18-rank"]:
         sys.exit(phase18_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
-    if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"]):
+    if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"],
+                         ["--phase21-rank"]):
         sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -9,7 +9,8 @@ world-of-one ``empty`` engine, the ``pysocket`` engine
 (:mod:`rabit_tpu_torch.engine.pysocket`: the collectives, the async
 pump with bucket fusion, custom reductions) and the fault-tolerant
 ``pyrobust`` engine over it (:mod:`rabit_tpu_torch.engine.robust`,
-with the keepalive launcher :mod:`rabit_tpu_torch.tracker.launch_local`),
+with the keepalive launcher :mod:`rabit_tpu_torch.tracker.launch_local`
+and the durable checkpoint tier :mod:`rabit_tpu_torch.ckpt`),
 the API, k-means
 (:mod:`rabit_tpu_torch.learn.kmeans`), gradient-boosted trees
 (:mod:`rabit_tpu_torch.learn.boosting`), and the wire the engine rides:
@@ -41,6 +42,7 @@ from rabit_tpu_torch.api import (
     tracker_print,
     version_number,
 )
+from rabit_tpu_torch.ckpt import CheckpointSkewError
 from rabit_tpu_torch.engine.interface import AsyncOrderError, CollectiveHandle
 from rabit_tpu_torch.engine.pysocket import AsyncPumpError
 from rabit_tpu_torch.engine.robust import RecoveryError
@@ -57,6 +59,7 @@ __all__ = [
     "allgather_async", "broadcast", "load_checkpoint", "checkpoint",
     "lazy_checkpoint", "version_number", "device_epoch",
     "AsyncOrderError", "AsyncPumpError", "RecoveryError", "CollectiveHandle",
+    "CheckpointSkewError",
     "MAX", "MIN", "SUM", "PROD", "BITOR", "BITAND", "BITXOR", "ReduceOp",
     "Serializable", "RabitError", "__version__",
 ]

@@ -25,8 +25,12 @@ def init(args: Optional[list[str]] = None, **params: Any) -> None:
 
     ``args`` accepts ``name=value`` strings; keyword params win on
     conflict.  Environment variables prefixed ``RABIT_`` are read as
-    defaults.  ``rabit_engine`` names the engine (``empty`` or
-    ``pysocket`` are ported).
+    defaults.  ``rabit_engine`` names the engine (``empty``,
+    ``pysocket`` or ``pyrobust`` are ported).  Recognised keys include
+    ``rabit_tracker_uri``, ``rabit_tracker_port``, ``rabit_task_id``,
+    ``rabit_reduce_buffer``, ``rabit_global_replica``,
+    ``rabit_local_replica``, ``rabit_ckpt_dir`` (durable checkpoint
+    tier) and ``rabit_heartbeat_sec`` (proactive liveness).
     """
     merged: dict[str, Any] = {}
     for key, val in os.environ.items():

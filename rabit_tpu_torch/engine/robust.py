@@ -27,6 +27,14 @@ Protocol:
   ring-replicates each rank's **local** model to its
   ``rabit_local_replica`` ring successors; recovery floods the blobs
   backward so a dead rank's own state survives its death.
+* With ``rabit_ckpt_dir`` set, elected writer ranks additionally
+  persist every committed version to the **durable tier**
+  (:mod:`rabit_tpu_torch.ckpt`: atomic CRC-stamped blobs + manifest),
+  and the checkpoint-load path cold-resumes from the newest valid
+  on-disk version when *no* live rank holds one — kill-all-ranks
+  restarts resume at the last committed version instead of 0, and a
+  rejoiner whose disk outran the cluster raises the typed
+  :class:`~rabit_tpu_torch.ckpt.CheckpointSkewError`.
 * Any :class:`LinkError` cascades every survivor into a tracker
   ``recover`` rendezvous; the relaunched rank registers with ``start``,
   loads the checkpoint from the agreed newest holder, replays cached
@@ -41,13 +49,13 @@ Recovery payloads ride the plain tree flood from the agreed root
 (everyone receives), as the reference's do.
 
 Left out until their ROADMAP items, each refused with
-:class:`NotImplementedError` where a knob would ask for it: the durable
-checkpoint tier (``rabit_ckpt_dir``, ``rabit_ckpt_keep``,
-``rabit_ckpt_writers``) and elastic membership (``rabit_elastic``:
-rescale epochs at commit boundaries, ``WorldChangedError``) (A4b);
-online adaptation (``rabit_adapt``) and telemetry (A8).  The port's
-tracker hands out epoch 0 and a fixed world, so a recover round that
-moved either raises, naming A4b.
+:class:`NotImplementedError` where a knob would ask for it: elastic
+membership (``rabit_elastic``: rescale epochs at commit boundaries,
+``WorldChangedError``, and the writer re-election after a rescale)
+(A4b); online adaptation (``rabit_adapt``) and telemetry (A8), which
+also holds the reference's checkpoint counters and trace events.  The
+port's tracker hands out epoch 0 and a fixed world, so a recover round
+that moved either raises, naming A4b.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from rabit_tpu_torch import ckpt as ckpt_mod
 from rabit_tpu_torch.engine.pysocket import PySocketEngine
 from rabit_tpu_torch.ops import ReduceOp
 from rabit_tpu_torch.tracker import protocol as P
@@ -140,6 +149,9 @@ class PyRobustEngine(PySocketEngine):
         # Agreed flags of the most recent consensus round: how the
         # commit path learns whether any rank's poll saw K_RESCALE.
         self._last_agreed = 0
+        # Durable tier (rabit_ckpt_dir): None when not configured.
+        self._ckpt_store: Optional[ckpt_mod.CheckpointStore] = None
+        self._ckpt_writers = 0
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -158,7 +170,32 @@ class PyRobustEngine(PySocketEngine):
             or os.environ.get("RABIT_RECOVER_ATTEMPTS", 8))
         check(self._recover_attempts > 0,
               "rabit_recover_attempts must be >= 1")
+        ckpt_dir = str(params.get("rabit_ckpt_dir")
+                       or os.environ.get("RABIT_CKPT_DIR", "")).strip()
+        # `x or env` would silently turn an explicit (invalid) 0 into
+        # the default instead of failing the >= 1 check below.
+        keep_raw = params.get("rabit_ckpt_keep")
+        if keep_raw in (None, ""):
+            keep_raw = os.environ.get("RABIT_CKPT_KEEP", 3)
+        ckpt_keep = int(keep_raw)
+        writers_raw = params.get("rabit_ckpt_writers")
+        if writers_raw in (None, ""):
+            writers_raw = os.environ.get("RABIT_CKPT_WRITERS", "")
         super().init(params)  # refusals, then rendezvous: rank known
+        if ckpt_dir:
+            check(ckpt_keep >= 1, "rabit_ckpt_keep must be >= 1")
+            # Writer election: the first rabit_ckpt_writers ranks persist.
+            # Default: rank 0 plus the ranks that ring-replicate its
+            # local model — the same set whose RAM already holds the
+            # hottest state, so adding disk IO there costs no extra
+            # replication traffic.
+            self._ckpt_writers = (int(writers_raw) if str(writers_raw)
+                                  else 1 + self._num_local_replica)
+            check(self._ckpt_writers >= 1,
+                  "rabit_ckpt_writers must be >= 1")
+            self._ckpt_store = ckpt_mod.CheckpointStore(
+                ckpt_mod.expand_dir(ckpt_dir, self._rank),
+                rank=self._rank, keep=ckpt_keep)
         self._num_trial = int(params.get("rabit_num_trial")
                               or os.environ.get("RABIT_NUM_TRIAL", 0))
         mock = (params.get("mock") or params.get("rabit_mock")
@@ -176,21 +213,12 @@ class PyRobustEngine(PySocketEngine):
         knobs whose machinery is not ported (each read as the reference
         reads it, so that a value the reference treats as off passes)."""
         PySocketEngine._refuse_unported(params, param_or_env)
-
-        def refuse(key, raw, item):
-            raise NotImplementedError(
-                f"{key}={raw!r} is not ported to rabit_tpu_torch yet "
-                f"(ROADMAP {item})")
-
-        for key in ("rabit_ckpt_dir", "rabit_ckpt_keep",
-                    "rabit_ckpt_writers"):
-            raw = param_or_env(key)
-            if raw is not None and str(raw).strip():
-                refuse(key, raw, "A4b")
         for key, item in (("rabit_elastic", "A4b"), ("rabit_adapt", "A8")):
             raw = params.get(key) or os.environ.get(key.upper(), "0")
             if str(raw).lower() in _TRUE:
-                refuse(key, raw, item)
+                raise NotImplementedError(
+                    f"{key}={raw!r} is not ported to rabit_tpu_torch yet "
+                    f"(ROADMAP {item})")
 
     def shutdown(self) -> None:
         self._fence()  # async stream drains before straggler serving
@@ -443,6 +471,12 @@ class PyRobustEngine(PySocketEngine):
         blob = self._bcast_impl(blob, root)
         if i_am_loader and self._rank != root:
             (bver,) = struct.unpack_from("<I", blob)
+            # Version-skew guard BEFORE installing: a valid disk
+            # checkpoint newer than the cluster-agreed version means
+            # this rank's durable tier outran the live world (wrong
+            # job, or the survivors lost committed state) — serving
+            # the stale agreement would silently roll work backward.
+            self._check_ckpt_skew(int(bver))
             self._version = int(bver)
             self._global = blob[4:]
             self._lazy_global = None  # received bytes supersede stale lazy
@@ -458,23 +492,83 @@ class PyRobustEngine(PySocketEngine):
     def _cold_checkpoint_load(self, i_am_loader: bool) -> bool:
         """Cold-restart path: nobody alive holds a checkpoint.
 
-        Every rank runs the reference's two agreement rounds, whatever
-        its own configuration, since a reference peer may hold a
-        durable tier: (1) is any rank a live non-loader (a version-0
-        world mid-flight, where no disk may be consulted); (2) the
-        holder of the newest valid on-disk version.  The port has no
-        durable tier (ROADMAP A4b), so it never holds one; the world
-        falls through to the fresh version-0 start when no rank does,
-        and a reference peer's disk checkpoint raises here instead of
-        being installed."""
-        self._agree_root(not i_am_loader, 1)
-        droot = self._agree_root(False, 0)
+        Every rank runs the SAME agreement rounds (the store may be
+        configured on only some ranks — e.g. writer-only disks — so the
+        collective structure must not depend on rank-local config):
+
+        1. unanimity check — a non-loader without a checkpoint is a
+           live version-0 world mid-flight; loading an (older-job) disk
+           version underneath it would fork versions, so disk is only
+           consulted when EVERY rank is a loader;
+        2. each rank reads its newest valid on-disk version, the world
+           agrees on the max-version holder, and that rank re-serves
+           the CRC-stamped blob verbatim over the tree flood.
+
+        Falls through to the fresh version-0 start when no rank has a
+        valid durable checkpoint."""
+        someone_running = self._agree_root(not i_am_loader, 1) >= 0
+        disk = None
+        if not someone_running:
+            disk = self._try_disk_read()
+        droot = self._agree_root(disk is not None,
+                                 disk.version if disk is not None else 0)
         if droot < 0:
             # Fresh start everywhere: loaders are satisfied with version 0.
             return True
-        raise NotImplementedError(
-            f"rank {droot} serves a durable checkpoint; the durable tier "
-            f"is not ported to rabit_tpu_torch yet (ROADMAP A4b)")
+        blob = disk.raw if self._rank == droot else None
+        blob = self._bcast_impl(blob, droot)
+        self._install_disk_checkpoint(bytes(blob))
+        log("pyrobust: cold-restart: resumed version %d from the durable "
+            "tier (served by rank %d)", self._version, droot)
+        return i_am_loader
+
+    def _try_disk_read(self) -> Optional[ckpt_mod.DiskCheckpoint]:
+        if self._ckpt_store is None:
+            return None
+        try:
+            return self._ckpt_store.load_latest()
+        except OSError as e:
+            log("pyrobust: durable checkpoint read failed: %s", e)
+            return None
+
+    def _install_disk_checkpoint(self, raw: bytes) -> None:
+        """Adopt a durable checkpoint blob as this rank's committed
+        state (the CRC is re-verified — the bytes crossed the wire)."""
+        try:
+            dc = ckpt_mod.unpack_blob(raw)
+        except ValueError as e:
+            error("pyrobust: served durable checkpoint is invalid: %s", e)
+        self._version = dc.version
+        self._global = dc.global_blob
+        self._lazy_global = None
+        self._has_checkpoint = True
+        self._seq = 0
+        self._cache.clear()
+        if dc.world == self._world:
+            for origin, blob in dc.locals.items():
+                dist = (self._rank - origin) % self._world
+                if origin == self._rank or dist <= self._num_local_replica:
+                    self._local_store[origin] = (dc.version, blob)
+            if self._rank in dc.locals:
+                self._local = dc.locals[self._rank]
+        elif dc.locals:
+            log("pyrobust: durable checkpoint was written by a world of "
+                "%d (now %d); local models discarded, global state kept",
+                dc.world, self._world)
+
+    def _check_ckpt_skew(self, agreed_version: int) -> None:
+        """Note this cannot misfire on a writer that persisted and died
+        mid-barrier: a loader arriving at the checkpoint barrier makes
+        every survivor commit FIRST (the commit-early rule in
+        _recover_exec), so the version the world serves always catches
+        up to anything a writer managed to persist; genuinely newer
+        disk therefore means foreign or lost state — fail loudly."""
+        if self._ckpt_store is None:
+            return
+        newest = self._ckpt_store.newest_version(
+            min_version=agreed_version)
+        if newest is not None and newest > agreed_version:
+            raise ckpt_mod.CheckpointSkewError(newest, agreed_version)
 
     # ------------------------------------------------------------------
     # collectives with replay
@@ -739,6 +833,31 @@ class PyRobustEngine(PySocketEngine):
             self._local = self._pending_local  # world-of-1 load path
         self._cache.clear()
         self._seq = 0
+        if self._is_ckpt_writer():
+            self._persist_checkpoint()
+
+    def _is_ckpt_writer(self) -> bool:
+        return (self._ckpt_store is not None
+                and self._rank < min(self._ckpt_writers, self._world))
+
+    def _persist_checkpoint(self) -> None:
+        """Durably persist the just-committed version (writer ranks
+        only).  Persistence is synchronous inside the commit, so a
+        persisted version is always one the whole world agreed (at the
+        checkpoint barrier) to commit; failures degrade durability
+        (logged), they never kill the job — the RAM replicas still
+        cover it."""
+        try:
+            self._materialize_global()  # lazy blobs must hit the disk too
+            locals_ = {origin: blob
+                       for origin, (version, blob)
+                       in self._local_store.items()
+                       if version == self._version}
+            self._ckpt_store.persist(self._version, self._world,
+                                     self._global or b"", locals_)
+        except OSError as e:
+            log("pyrobust: durable checkpoint persist failed (v%d): %s",
+                self._version, e)
 
     def checkpoint(self, global_model, local_model=None,
                    lazy_global=None) -> None:
@@ -787,7 +906,12 @@ class PyRobustEngine(PySocketEngine):
         self._verify(SEQ_LOAD_CHECK)
         if self._world == 1:
             if not self._has_checkpoint:
-                return (0, None, None)
+                disk = self._try_disk_read()
+                if disk is None:
+                    return (0, None, None)
+                self._install_disk_checkpoint(disk.raw)
+                log("pyrobust: cold-restart: resumed version %d from the "
+                    "durable tier", self._version)
             self._materialize_global()
             return (self._version, self._global, self._local)
         self._recover_exec(K_LOAD_CHECK, want_result=False)

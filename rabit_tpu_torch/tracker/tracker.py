@@ -140,6 +140,10 @@ class JobState:
         # cmd=start from one of these is a mid-job relaunch, flagged in
         # its topology reply.
         self._started_tasks: set[str] = set()
+        # task_id -> monotonic time of its latest start/recover
+        # registration: the launcher's evidence that a freshly started
+        # life reached the rendezvous (Tracker.registered_at).
+        self._registered_at: dict[str, float] = {}
         self._pending: list[_Registrant] = []
         self._round_started: float | None = None  # first registrant time
         self._pending_lock = threading.Lock()
@@ -471,6 +475,7 @@ class JobState:
         """Park one start/recover registrant in this job's rendezvous
         barrier (and complete the round if it fills)."""
         self.last_activity = time.monotonic()
+        self._registered_at[task_id] = self.last_activity
         self._lost_tasks.discard(task_id)
         if cmd == P.CMD_START and task_id in self._started_tasks:
             # A mid-job relaunch re-registering: a restart event for
@@ -882,6 +887,16 @@ class Tracker:
             self._listener.close()
         except OSError:
             pass
+
+    def registered_at(self, task_id: str,
+                      job: str | None = None) -> float | None:
+        """Monotonic time of a task's latest start/recover registration
+        in ``job`` (None = the default job), or None if it never
+        registered: how the launcher's stall killer tells a life that
+        is still starting from one that registered and then hung."""
+        with self._jobs_lock:
+            j = self._jobs.get(job or DEFAULT_JOB)
+        return None if j is None else j._registered_at.get(task_id)
 
     def note_dead(self, task_id: str, job: str | None = None) -> None:
         """Supervisor-facing death notice (see JobState.note_dead).

@@ -312,8 +312,32 @@ def test_liveness_launch_options_are_served(key, out):
     assert code == (7 if key == "heartbeat_sec" else 5)
 
 
+def test_ckpt_dir_flag_is_served(monkeypatch):
+    """``--ckpt-dir`` reaches ``launch`` as given."""
+    from rabit_tpu_torch.tracker import launch_local
+
+    seen = {}
+    monkeypatch.setattr(launch_local, "launch",
+                        lambda *a, **kw: seen.update(kw) or 0)
+    with pytest.raises(SystemExit) as err:
+        launch_local.main(["-n", "2", "--ckpt-dir", "/d/{rank}", "python",
+                           "w.py"])
+    assert err.value.code == 0
+    assert seen["ckpt_dir"] == "/d/{rank}"
+
+
+def test_ckpt_dir_launch_option_is_served(out):
+    """``ckpt_dir`` reaches the workers as ``RABIT_CKPT_DIR``; they exit
+    at once with a code that says what they saw."""
+    from rabit_tpu_torch.tracker.launch_local import launch
+
+    check = ("import os, sys; sys.exit(7 if os.environ.get("
+             "'RABIT_CKPT_DIR') == '/d/{rank}' else 5)")
+    assert launch(2, [sys.executable, "-c", check],
+                  ckpt_dir="/d/{rank}") == 7
+
+
 @pytest.mark.parametrize("flag,item", [
-    ("--ckpt-dir", "A4b"),
     ("--min-workers", "A4b"), ("--max-workers", "A4b"),
     ("--state-dir", "A4b"), ("--obs-dir", "A8"), ("--obs-port", "A8"),
     ("--trace-dir", "A8")])
@@ -328,7 +352,7 @@ def test_refused_flags(flag, item, capsys):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("ckpt_dir", "A4b"), ("min_workers", "A4b"), ("max_workers", "A4b"),
+    ("min_workers", "A4b"), ("max_workers", "A4b"),
     ("state_dir", "A4b"),
     ("obs_dir", "A8"), ("obs_port", "A8"), ("trace_dir", "A8")])
 def test_refused_launch_options(key, item):

@@ -1177,3 +1177,69 @@ def test_stall_killer_matches_reference(case, procs, ages, present,
             "fresh-life": [2], "already-dead": [2], "not-live": [2],
             "nobody-silent": [], "kill-fails": [1]}[case]
     assert got["torch"][:2] == (want, want)
+
+
+@pytest.mark.parametrize("policy", ["port", "reference"])
+def test_a_relaunch_that_registers_late_is_killed_once(policy):
+    """A hung worker is killed by the watchdog and relaunched at once;
+    each life registers three periods after its start unless it was
+    killed first.  The watchdog rearms every period while the round
+    waits, so the reference's one-period grace kills every such life
+    and the round never fills; the port's killer, told when the tracker
+    last saw each task register, spares a life until it registers, and
+    the round fills after one kill."""
+    period = 0.3
+    live, started, marked, lock = {}, {}, set(), threading.Lock()
+    kills, regs, timers = [], [], []
+    box = {}
+
+    class Proc(_Proc):
+        def __init__(self, wid):
+            super().__init__()
+            self.wid = wid
+
+        def kill(self):
+            super().kill()
+            self.code = -9
+            kills.append(self.wid)
+            nxt = Proc(self.wid)   # the keepalive's relaunch
+            with lock:
+                live[self.wid] = nxt
+                started[self.wid] = time.monotonic()
+
+            def register():
+                if nxt.code is None:   # a killed life never registers
+                    regs.append(_park(box["t"], str(self.wid), world=3))
+            timers.append(threading.Timer(3 * period, register))
+            timers[-1].start()
+
+    registered_at = ((lambda tid: box["t"].registered_at(tid))
+                     if policy == "port" else None)
+    on_stall = port_launch.make_stall_killer(
+        3, live, started, lock, marked, period, registered_at=registered_at)
+    t = box["t"] = _tracker("torch", 3, watchdog_sec=period,
+                            on_stall=on_stall)
+    try:
+        for i in range(3):
+            live[i], started[i] = Proc(i), time.monotonic() - 10.0
+        socks = [_park(t, str(i), world=3) for i in range(3)]
+        for sk in socks:
+            P.TopologyReply.recv(sk)
+            sk.close()
+        # worker 1 hangs; 0 and 2 come back to the recover round
+        socks = [_park(t, str(i), world=3, cmd=P.CMD_RECOVER)
+                 for i in (0, 2)]
+        filled = _wait(lambda: regs, 8 * period)
+        for sk in socks + regs:
+            if filled:
+                P.TopologyReply.recv(sk)
+            sk.close()
+    finally:
+        for tm in timers:
+            tm.cancel()
+            tm.join()
+        _stop(t)
+    if policy == "port":
+        assert (filled, kills) == (True, [1])
+    else:
+        assert not filled and len(kills) >= 2 and set(kills) == {1}

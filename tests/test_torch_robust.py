@@ -22,6 +22,7 @@ Seqno map per iteration (seq resets at each checkpoint):
   (1<<20) = at checkpoint, (1<<20)+1 = at load_checkpoint
 """
 import json
+import os
 import threading
 import time
 
@@ -240,18 +241,26 @@ BODIES = {"model": model_recover, "local": local_recover,
           "lazy": lazy_recover}
 
 
-def _scenario(name, world, mock, body=None, params=None):
+def _scenario(name, world, mock, body=None, params=None, ckpt_root=None):
     """The port world killed at ``mock`` against its fault-free run and
     against the reference world killed at the same points: every rank's
     record equal bit for bit, the same lives, and each life resuming at
     the same checkpoint.  ``body`` holds the worker's size arguments,
-    ``params`` engine knobs.  Returns the lives by rank and the
-    iteration each life started at."""
+    ``params`` engine knobs; ``ckpt_root`` gives each of the three
+    worlds a durable store of its own under it.  Returns the lives by
+    rank and the iteration each life started at."""
     def run(eng, kind, trial, rec):
         BODIES[name](eng, kind, trial, rec, **(body or {}))
-    clean, clean_lives = _run_world(["torch"] * world, run, (), params)
-    got, lives = _run_world(["torch"] * world, run, mock, params)
-    want, want_lives = _run_world(["jax"] * world, run, mock, params)
+
+    def knobs(world_name):
+        if ckpt_root is None:
+            return params
+        return {**(params or {}),
+                "rabit_ckpt_dir": os.path.join(ckpt_root, world_name)}
+    clean, clean_lives = _run_world(["torch"] * world, run, (),
+                                    knobs("clean"))
+    got, lives = _run_world(["torch"] * world, run, mock, knobs("port"))
+    want, want_lives = _run_world(["jax"] * world, run, mock, knobs("ref"))
     starts = [rec.pop("starts") for rec in got]
     assert starts == [rec.pop("starts") for rec in want]
     assert [rec.pop("starts") for rec in clean] == [[0]] * world
@@ -626,8 +635,7 @@ def test_merge_word_matches_reference():
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("key,value,item", [
-    ("rabit_ckpt_dir", "/tmp/ckpt", "A4b"), ("rabit_ckpt_keep", "3", "A4b"),
-    ("rabit_ckpt_writers", "2", "A4b"), ("rabit_elastic", "1", "A4b"),
+    ("rabit_elastic", "1", "A4b"),
     ("rabit_elastic", "true", "A4b"), ("rabit_adapt", "yes", "A8"),
     ("rabit_wire_codec", "int8", "A8")])
 def test_unported_knobs_raise(key, value, item):
@@ -636,6 +644,50 @@ def test_unported_knobs_raise(key, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         PyRobustEngine().init({"rabit_tracker_uri": "127.0.0.1",
                                "rabit_tracker_port": 1, key: value})
+
+
+@pytest.mark.parametrize("case", ["dir", "keep-0", "writers-0", "env"])
+def test_ckpt_knobs_are_served(case, tmp_path, monkeypatch):
+    """The durable tier's knobs, read as the reference reads them, at
+    world 1: ``rabit_ckpt_dir`` builds the store on the ``{rank}``-
+    expanded directory with ``rabit_ckpt_keep`` (default 3) and
+    ``rabit_ckpt_writers`` (default 1 + ``rabit_local_replica``); an
+    explicit 0 for either fails its ``>= 1`` check once the rank is
+    known; the environment stands in for absent params."""
+    from rabit_tpu_torch.utils import RabitError
+
+    knobs = {"dir": {"rabit_ckpt_dir": str(tmp_path / "d{rank}")},
+             "keep-0": {"rabit_ckpt_dir": str(tmp_path), "rabit_ckpt_keep": 0},
+             "writers-0": {"rabit_ckpt_dir": str(tmp_path),
+                           "rabit_ckpt_writers": "0"},
+             "env": {}}[case]
+    if case == "env":
+        monkeypatch.setenv("RABIT_CKPT_DIR", str(tmp_path / "e{rank}"))
+        monkeypatch.setenv("RABIT_CKPT_KEEP", "5")
+        monkeypatch.setenv("RABIT_CKPT_WRITERS", "2")
+    trk = Tracker(1, "127.0.0.1", 0)
+    trk.start()
+    eng = PyRobustEngine()
+    try:
+        params = {"rabit_tracker_uri": "127.0.0.1",
+                  "rabit_tracker_port": trk.port, "rabit_world_size": 1,
+                  **knobs}
+        if case in ("keep-0", "writers-0"):
+            with pytest.raises(RabitError, match=">= 1"):
+                eng.init(params)
+            eng._close_links()
+            return
+        eng.init(params)
+        store = eng._ckpt_store
+        root, keep, writers = {"dir": ("d0", 3, 3),
+                               "env": ("e0", 5, 2)}[case]
+        assert (store.root, store.rank, store.keep, eng._ckpt_writers) == (
+            str(tmp_path / root), 0, keep, writers)
+        eng.checkpoint(b"G1")
+        assert store.load_latest().global_blob == b"G1"
+        eng.shutdown()
+    finally:
+        trk.stop()
 
 
 def test_off_values_pass_and_bad_values_are_checked(monkeypatch):
