@@ -202,6 +202,31 @@ Phases, each raising on failure (the script then exits non-zero):
     last death -> every relaunch registered, each relaunch's start ->
     cold load (disk read, the whole cold path) -> first fresh op, and
     each job's time against phase 17's.
+22. (after 21) elastic membership at world 3 <-> 2 over ``pyrobust``:
+    the app loop of ``tests/workers/elastic_worker.py`` around
+    ``kmeans.run`` on phase 5's dense16 rows (4,194,304 x 256, k=64,
+    bfloat16, 4 iterations, ``heartbeat_sec=0.5``, a fresh ckpt_dir a
+    job), each rank re-sharding with ``splitrows.rows_for_rank`` at every
+    world (this script with ``--phase22-rank`` or ``--phase22-grow``).
+    (a) Shrink: ``launch_local.launch(3, ..., min_workers=2,
+    max_restarts=0)``; the world-3 rank 2 SIGKILLs itself right after
+    version 1's commit, the tracker's heartbeat EOF verdict (and the
+    launcher's elastic leave) shrink the target to 2, and the survivors
+    catch ``WorldChangedError``, reload version 1 and finish in halves.
+    (b) Grow: two rank processes against the port's ``Tracker(2,
+    max_workers=3)``; after version 1's commit they hold at a marker
+    file while a third process starts with ``cmd=start`` and parks;
+    version 2's commit lands the grow, the survivors reload version 2
+    and the joiner's ``load_checkpoint`` is served it.  Every stats
+    allreduce at every world counts exactly 4,194,304 rows, every resume
+    starts at the committed version, the final centroids lie within
+    1e-3 of phase 5's plain device loop over all the rows from the same
+    seeds, everything is staged dense16 and B1 runs on every rank at
+    every world, its launches by task and (epoch, world) checked and put
+    on the ``kernels`` line.  It prints death -> verdict -> rescale ->
+    survivors in the new world, joiner start -> parked -> admitted,
+    every ``rows_for_rank`` and every re-staging time, and each job's
+    wall.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -2040,36 +2065,49 @@ def _ms(seconds):
     return f"{seconds * 1e3:.3f}"
 
 
-def _run_rank_processes(flag, ntrackers, phase, meanwhile=None):
-    """Start the port's ``Tracker(3)`` ``ntrackers`` times on
-    127.0.0.1:0 and three processes of this script with ``flag TASK
-    PORT...`` (no ``RABIT_`` variable in their environment), run
-    ``meanwhile()`` here, and wait: a rank that fails fails the phase at
-    once (the others would wait on it until their link or tracker
-    timeouts).  Returns each rank's last JSON line, once every tracker's
-    ``run()`` has returned after the ranks' shutdowns."""
+def _run_rank_processes(flag, ntrackers, phase, meanwhile=None,
+                        nranks=W3_RANKS, tracker_kw=None, args=()):
+    """Start the port's ``Tracker(nranks, **tracker_kw)`` ``ntrackers``
+    times on 127.0.0.1:0 and ``nranks`` processes of this script with
+    ``flag TASK PORT... ARGS...`` (no ``RABIT_`` variable in their
+    environment), run ``meanwhile(ctl)`` here (``ctl.trackers``;
+    ``ctl.spawn(task)`` starts one more such process; ``ctl.failed()``
+    says whether one has failed), and wait: a rank that fails fails the
+    phase at once (the others would wait on it until their link or
+    tracker timeouts).  Returns each rank's last JSON line, once every
+    tracker's ``run()`` has returned after the ranks' shutdowns."""
+    import types
+
     from rabit_tpu_torch.tracker.tracker import Tracker
 
     t0 = time.perf_counter()
-    trackers = [Tracker(W3_RANKS, host="127.0.0.1", port=0)
-                for _ in range(ntrackers)]
-    procs = []
-    # the ranks' output goes to files: a rank blocked on a full pipe in
-    # mid-collective would stall the ranks waiting on it
-    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for _ in range(W3_RANKS)]
+    trackers = [Tracker(nranks, host="127.0.0.1", port=0,
+                        **(tracker_kw or {})) for _ in range(ntrackers)]
+    procs, logs = [], []
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RABIT_")}
+    env["PYTHONPATH"] = ROOT
+
+    def spawn(task):
+        # the ranks' output goes to files: a rank blocked on a full pipe
+        # in mid-collective would stall the ranks waiting on it
+        logs.append((tempfile.TemporaryFile("w+"),
+                     tempfile.TemporaryFile("w+")))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(task)]
+            + [str(t.port) for t in trackers] + [str(a) for a in args],
+            cwd=ROOT, env=env, stdout=logs[-1][0], stderr=logs[-1][1]))
+
     try:
         for t in trackers:
             t.start()
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith("RABIT_")}
-        env["PYTHONPATH"] = ROOT
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), flag, str(i)]
-            + [str(t.port) for t in trackers], cwd=ROOT, env=env,
-            stdout=logs[i][0], stderr=logs[i][1]) for i in range(W3_RANKS)]
+        for i in range(nranks):
+            spawn(i)
         if meanwhile is not None:
-            meanwhile()
+            meanwhile(types.SimpleNamespace(
+                trackers=trackers, spawn=spawn,
+                failed=lambda: any(p.poll() not in (None, 0)
+                                   for p in procs)))
         while any(p.poll() is None for p in procs):
             for i, p in enumerate(procs):
                 if p.poll() not in (None, 0):
@@ -2120,7 +2158,7 @@ def world3_phase(torch, km, kk):
     t0 = time.perf_counter()
     oracle = {}
 
-    def run_oracle():
+    def run_oracle(_ctl):
         # world 1 on the whole data, the plain device loop from the
         # centroids init_centroids seeds at world 3 (the same rows,
         # learn/kmeans.py init_centroids), with no wire
@@ -3756,6 +3794,487 @@ def _durable_times(which, run, p17_walls):
         f"17's run() by rank {[round(x, 3) for x in p17_walls]} s")
 
 
+# --------------------------------------------------------------- phase 22
+P22_ITERS = 4                      # k-means iterations: versions 1..4
+P22_HEARTBEAT_SEC = 0.5
+P22_KILL_VERSION = 1               # (a) rank 2 dies right after this commit
+P22_HOLD_VERSION = 1               # (b) the joiner starts after this commit
+# B1 launches by (epoch, world): (a) iteration 1 at world 3, 2-4 at world
+# 2; (b) iterations 1-2 at world 2 (the grow lands at version 2's
+# commit), 3-4 at world 3
+P22_B1 = {"shrink": {"survivor": [[0, 3, 1], [1, 2, 3]],
+                     "leaver": [[0, 3, 1]]},
+          "grow": {"survivor": [[0, 2, 2], [1, 3, 2]],
+                   "joiner": [[1, 3, 2]]}}
+
+
+def elastic_picks(shards, k):
+    """The global rows ``init_centroids`` seeds each centroid from when
+    the rows are dealt out as ``shards`` (each rank's row ids, in
+    order): each rank draws k rows of its own shard and then k roots
+    from one generator of seed 0, and centroid i is root i's row i (as
+    ``world3_picks``, for any shards)."""
+    rows, roots = [], []
+    for shard in shards:
+        draw = np.random.default_rng(0)
+        rows.append([int(draw.integers(len(shard))) for _ in range(k)])
+        roots.append([int(draw.integers(len(shards))) for _ in range(k)])
+    if any(rt != roots[0] for rt in roots):
+        raise AssertionError("init_centroids' roots differ between shards")
+    return [int(shards[roots[0][i]][rows[roots[0][i]][i]]) for i in range(k)]
+
+
+def _gather_rows(data, rows):
+    """Rows ``rows`` (ascending ids) of a SparseMat of rows with equal
+    slot counts."""
+    from rabit_tpu_torch.learn.data import SparseMat
+
+    nnz = int(data.indptr[1] - data.indptr[0])
+    rows = np.asarray(rows, np.int64)
+    return SparseMat(indptr=np.arange(len(rows) + 1, dtype=np.int64) * nnz,
+                     findex=data.findex.reshape(-1, nnz)[rows].reshape(-1),
+                     fvalue=data.fvalue.reshape(-1, nnz)[rows].reshape(-1),
+                     labels=data.labels[rows], feat_dim=data.feat_dim)
+
+
+def elastic_rank(job, out_dir, task=None, port=None):
+    """One rank process of phase 22 (``chip_smoke.py --phase22-rank
+    shrink DIR`` under the port's launcher, or ``--phase22-grow TASK
+    PORT DIR`` against the script's tracker): the elastic app loop of
+    ``tests/workers/elastic_worker.py`` around ``kmeans.run`` on phase
+    5's dense16 rows.  It re-shards with ``splitrows.rows_for_rank`` for
+    its (rank, world), runs ``kmeans.run`` (which loads the committed
+    version and stages its rows, dense16, B1), and on
+    ``WorldChangedError`` does it again for the new world.  (a) The
+    world-3 rank 2 SIGKILLs itself right after version 1's commit;
+    (b) the first two ranks hold after version 1's commit while the
+    file ``hold.grow`` exists.  Records (loads, rescales, every stats
+    allreduce's row count, B1 launches by world, the times) go to DIR as
+    ``JOB.TASK.json``, also just before the kill; (b) prints it too."""
+    marks = {}
+    import torch
+
+    marks["torch"] = since_start()
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase-22 ranks run on the card")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda"] = since_start()
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.learn import splitrows
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = {"rabit_timeout_sec": W3_TIMEOUT}
+    if port is not None:
+        params.update(rabit_tracker_uri="127.0.0.1", rabit_tracker_port=port,
+                      rabit_task_id=task, rabit_world_size=2, rabit_elastic=1,
+                      rabit_heartbeat_sec=P22_HEARTBEAT_SEC,
+                      rabit_ckpt_dir=os.path.join(out_dir, "ckpt." + job))
+    rabit_tpu_torch.init(**params)
+    marks["init"] = since_start()
+    eng = engine_mod.get_engine()
+    task = task if task is not None else os.environ["RABIT_TASK_ID"]
+    with open(os.path.join(out_dir, f"picks.{job}.json")) as f:
+        picks = json.load(f)
+    rec = dict(job=job, task=task, first=[eng.epoch, eng.world_size,
+                                          eng.rank],
+               engine=type(eng).__name__, marks=marks, loads=[],
+               rescales=[], counts=[], b1=[], rows_s=[], stage_s=[],
+               tiers=[], ell=0, done=False, t0=_STARTED[0], pid=os.getpid())
+    path = os.path.join(out_dir, f"{job}.{task}.json")
+    # (epoch, world, rank) of the world this life runs in, and B1's
+    # count when it began
+    world = [eng.epoch, eng.world_size, eng.rank,
+             kk.LAUNCHES["kmeans_stats_dense"]]
+
+    def close_world():
+        now = kk.LAUNCHES["kmeans_stats_dense"]
+        rec["b1"].append(world[:3] + [now - world[3]])
+        world[:] = [eng.epoch, eng.world_size, eng.rank, now]
+
+    def dump():
+        rec["ell"] = kk.LAUNCHES["kmeans_stats_ell"]
+        with open(path, "w") as f:
+            json.dump(rec, f)
+
+    real = {name: getattr(eng, name) for name in (
+        "_allreduce_blocking", "checkpoint", "load_checkpoint")}
+
+    def allreduce(buf, *a, **k):
+        version = eng._version
+        out = real["_allreduce_blocking"](buf, *a, **k)
+        if buf.ndim == 2:
+            # the stats' count column: every row counted once at any
+            # world is the exact-partition proof
+            rec["counts"].append([eng.epoch, eng.world_size, version, int(
+                np.asarray(out[:, -1], np.float64).sum())])
+        return out
+
+    hold = os.path.join(out_dir, "hold." + job)
+
+    def checkpoint(*a, **k):
+        real["checkpoint"](*a, **k)
+        if job == "shrink" and rec["first"][2] == 2 and \
+                eng._version == P22_KILL_VERSION:
+            close_world()
+            rec["killed"] = eng._version
+            marks["killed"] = since_start()
+            dump()
+            os.kill(os.getpid(), signal.SIGKILL)
+        if job == "grow" and eng._version == P22_HOLD_VERSION and \
+                os.path.exists(hold):
+            marks["held"] = since_start()
+            open(os.path.join(out_dir, f"held.{job}.{task}"), "w").close()
+            deadline = time.monotonic() + W3_TIMEOUT
+            while os.path.exists(hold) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            marks["released"] = since_start()
+
+    def load_checkpoint():
+        out = real["load_checkpoint"]()
+        rec["loads"].append([eng.epoch, eng.world_size, eng.rank, out[0],
+                             since_start()])
+        return out
+
+    eng._allreduce_blocking = allreduce
+    eng.checkpoint = checkpoint
+    eng.load_checkpoint = load_checkpoint
+    real_prepare = km.prepare_shard
+
+    def dense16(*a, **k):
+        t = time.perf_counter()
+        staged = real_prepare(*a, budget=0, **k)    # as phase 17
+        torch.cuda.synchronize()
+        rec["tiers"].append(staged[0])
+        rec["stage_s"].append(time.perf_counter() - t)
+        return staged
+    km.prepare_shard = dense16
+
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7, picks=picks)
+    marks["data"] = since_start()
+    while True:
+        try:
+            t = time.perf_counter()
+            rows = splitrows.rows_for_rank(MAIN_ROWS, eng.rank,
+                                           eng.world_size)
+            rec["rows_s"].append(time.perf_counter() - t)
+            shard = _gather_rows(data, rows)
+            del rows
+            model = km.run(shard, K, P22_ITERS, compute_dtype="bfloat16")
+            torch.cuda.synchronize()
+            break
+        except rabit_tpu_torch.WorldChangedError as e:
+            close_world()
+            rec["rescales"].append([e.old_world, e.new_world, e.epoch,
+                                    eng.version_number, since_start()])
+            shard = None
+    close_world()
+    marks["end"] = since_start()
+    rec.update(done=True, version=eng.version_number,
+               centroids=model.centroids.tolist())
+    dump()
+    rabit_tpu_torch.finalize()
+    if port is not None:
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+class _TrackerLog:
+    """Times, on the monotonic clock, of the port's tracker's liveness
+    events and of each completed round's epoch and world, for the
+    trackers in this process (the launcher's, inside ``launch``, and the
+    script's own)."""
+
+    def __init__(self):
+        self.live, self.rounds = [], []
+
+    def __enter__(self):
+        from rabit_tpu_torch.tracker import tracker as tr
+
+        self._cls = tr.JobState
+        self._real = (tr.JobState._emit_liveness, tr.JobState._finish_round)
+        emit, finish = self._real
+        live, rounds = self.live, self.rounds
+
+        def emit_liveness(job, phase, task_id, **fields):
+            live.append((time.monotonic(), phase, task_id))
+            return emit(job, phase, task_id, **fields)
+
+        def finish_round(job):
+            before = job._epoch
+            finish(job)
+            if job._epoch != before:
+                rounds.append((time.monotonic(), job._epoch, job.n_workers))
+        tr.JobState._emit_liveness = emit_liveness
+        tr.JobState._finish_round = finish_round
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._emit_liveness, self._cls._finish_round = self._real
+
+
+def elastic_oracle(torch, km, picks):
+    """Phase 5's plain device loop over all the rows, from the centroids
+    ``init_centroids`` seeds from ``picks``, for P22_ITERS iterations."""
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7, picks=picks)
+    init = np.zeros((K, 256), np.float32)
+    for i, row in enumerate(picks):
+        fi, fv = data.row(row)
+        np.add.at(init, (i, fi), fv)
+    model = km.KMeansModel(init)
+    model.normalize()
+    idx, val, _lab, valid = data.to_ell(pad_index=256, row_block=1024)
+    del data
+    shard = km.prepare_shard(idx, val, valid, 256, 1024, budget=0,
+                             compute_dtype="bfloat16")
+    del idx, val, valid
+    if shard[0] != "dense16":
+        raise AssertionError(f"phase 22 oracle: staged {shard[0]}")
+    x16, v16 = shard[2]
+    out = km.device_iterations(torch.from_numpy(model.centroids).cuda(),
+                               x16, v16, P22_ITERS, use_kernel=False,
+                               compute_dtype="bfloat16").cpu().numpy()
+    del shard, x16, v16
+    torch.cuda.empty_cache()
+    return out
+
+
+def _elastic_records(out_dir, job):
+    recs = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(job + ".") and name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                r = json.load(f)
+            recs[r["task"]] = r
+    return recs
+
+
+def _check_elastic(job, recs, oracle, want):
+    """Phase 22's checks on one job's records: ``want`` maps each task's
+    role to (first (epoch, world), rescales as (old, new, epoch,
+    version), versions loaded).  Returns B1's launches by task."""
+    finals = []
+    b1 = {}
+    for task, r in sorted(recs.items()):
+        role = want["roles"][task]
+        first, rescales, loads = want[role]
+        if r["first"][:2] != first:
+            raise AssertionError(f"phase 22 {job} task {task}: started at "
+                                 f"(epoch, world) {r['first'][:2]}")
+        if [x[:4] for x in r["rescales"]] != rescales:
+            raise AssertionError(f"phase 22 {job} task {task}: rescales "
+                                 f"{r['rescales']}, want {rescales}")
+        if [x[3] for x in r["loads"]] != loads:
+            raise AssertionError(f"phase 22 {job} task {task}: loaded "
+                                 f"versions {[x[3] for x in r['loads']]}, "
+                                 f"want {loads}")
+        for (old, new, epoch, version, _at), load in zip(r["rescales"],
+                                                         r["loads"][1:]):
+            if load[:4] != [epoch, new, load[2], version]:
+                raise AssertionError(f"phase 22 {job} task {task}: resumed "
+                                     f"{load[:4]} after the rescale to "
+                                     f"world {new} at version {version}")
+        for epoch, world, version, rows in r["counts"]:
+            if rows != MAIN_ROWS:
+                raise AssertionError(
+                    f"phase 22 {job} task {task}: the stats at version "
+                    f"{version}, world {world} counted {rows} rows, not "
+                    f"{MAIN_ROWS}")
+        if set(r["tiers"]) != {"dense16"} or r["ell"]:
+            raise AssertionError(f"phase 22 {job} task {task}: staged "
+                                 f"{r['tiers']}, ELL launches {r['ell']}")
+        if [[e, w, n] for e, w, _rank, n in r["b1"]] != P22_B1[job][role]:
+            raise AssertionError(f"phase 22 {job} task {task}: B1 launches "
+                                 f"by (epoch, world, rank) {r['b1']}, want "
+                                 f"{P22_B1[job][role]}")
+        b1[task] = r["b1"]
+        if role == "leaver":
+            if r.get("killed") != P22_KILL_VERSION or r["done"]:
+                raise AssertionError(f"phase 22 {job} task {task}: did not "
+                                     f"die after version {P22_KILL_VERSION}")
+            continue
+        if not r["done"] or r["version"] != P22_ITERS:
+            raise AssertionError(f"phase 22 {job} task {task}: ended at "
+                                 f"version {r.get('version')}")
+        finals.append(np.asarray(r["centroids"], np.float32))
+    if any(not np.array_equal(c, finals[0]) for c in finals):
+        raise AssertionError(f"phase 22 {job}: the ranks' centroids differ")
+    err = float(np.abs(finals[0] - oracle).max())
+    if not (np.isfinite(finals[0]).all() and finals[0].shape == (K, 256)
+            and err <= CENT_ATOL):
+        raise AssertionError(f"phase 22 {job}: centroids off the plain loop "
+                             f"by {err} (bar {CENT_ATOL})")
+    return b1, err
+
+
+def _elastic_times(job, recs):
+    for task, r in sorted(recs.items()):
+        m = r["marks"]
+        log(f"      {job} task {task}: from its start, torch "
+            f"{m['torch']:.3f} s, CUDA {m['cuda']:.3f} s, engine init "
+            f"(admitted) {m['init']:.3f} s, its rows made {m['data']:.3f} s; "
+            f"rows_for_rank over {MAIN_ROWS} rows "
+            f"{[round(s, 3) for s in r['rows_s']]} s; staging (dense16) "
+            f"{[round(s, 3) for s in r['stage_s']]} s; loads (epoch, world, "
+            f"rank, version) {[x[:4] for x in r['loads']]}; B1 by (epoch, "
+            f"world, rank) {r['b1']}; "
+            + (f"killed {m['killed']:.3f} s" if "killed" in m
+               else f"done {m['end']:.3f} s"))
+
+
+def phase22(torch, km):
+    """Phase 22: elastic k-means at world 3 <-> 2 over ``pyrobust``
+    (see ``elastic_rank``).  (a) Shrink: ``launch_local.launch(3, ...,
+    min_workers=2, max_restarts=0, ckpt_dir=..., heartbeat_sec=0.5)``;
+    the world-3 rank 2 SIGKILLs itself after version 1's commit, the
+    heartbeat EOF and the launcher's elastic leave shrink the world, the
+    survivors resume from version 1 in halves.  (b) Grow: two rank
+    processes against the port's ``Tracker(2, max_workers=3)``; after
+    version 1's commit they hold until a third, started then, has
+    parked; version 2's commit lands the grow and all three resume from
+    version 2.  Returns B1's launches by job, rank and world."""
+    import threading
+
+    from rabit_tpu_torch.learn import splitrows
+
+    t0 = time.perf_counter()
+    log(f"[22] elastic k-means, dense16 {MAIN_ROWS} x 256 k={K}, "
+        f"{P22_ITERS} iterations, heartbeat_sec={P22_HEARTBEAT_SEC}, "
+        f"rows re-sharded by splitrows.rows_for_rank | nvidia-smi: "
+        f"{smi_line()}")
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        shards3 = splitrows.shard_indices(MAIN_ROWS, 3)
+        t_shards = time.perf_counter() - t
+        picks = {"shrink": elastic_picks(shards3, K)}
+        del shards3
+        shards2 = splitrows.shard_indices(MAIN_ROWS, 2)
+        picks["grow"] = elastic_picks(shards2, K)
+        del shards2
+        for job, p in picks.items():
+            with open(os.path.join(tmp, f"picks.{job}.json"), "w") as f:
+                json.dump(p, f)
+        log(f"    shard_indices over {MAIN_ROWS} rows (the Python stream "
+            f"rows_for_rank replays): {t_shards:.3f} s")
+
+        # (a) shrink, under the launcher; the oracles meanwhile
+        launched, oracle = {}, {}
+        with _TrackerLog() as tl:
+            th = threading.Thread(target=lambda: launched.update(
+                out=_launch_ranks("22", "shrink", tmp, min_workers=2,
+                                  max_restarts=0,
+                                  ckpt_dir=os.path.join(tmp, "ckpt.shrink"),
+                                  heartbeat_sec=P22_HEARTBEAT_SEC)),
+                daemon=True)
+            th.start()
+            for job in ("shrink", "grow"):
+                oracle[job] = elastic_oracle(torch, km, picks[job])
+            th.join(W3_TIMEOUT + 90)
+        if "out" not in launched:
+            raise AssertionError("phase 22 shrink: the launch failed")
+        code, secs = launched["out"]
+        if code != 0:
+            raise AssertionError(f"phase 22 shrink: the launcher returned "
+                                 f"{code}")
+        recs = _elastic_records(tmp, "shrink")
+        roles = {task: ("leaver" if r["first"][2] == 2 else "survivor")
+                 for task, r in recs.items()}
+        if sorted(roles.values()) != ["leaver", "survivor", "survivor"]:
+            raise AssertionError(f"phase 22 shrink: records {roles}")
+        b1, err = _check_elastic("shrink", recs, oracle["shrink"], dict(
+            roles=roles, survivor=([0, 3], [[3, 2, 1, P22_KILL_VERSION]],
+                                   [0, P22_KILL_VERSION]),
+            leaver=([0, 3], [], [0])))
+        result["shrink"] = b1
+        dead = next(r for r in recs.values() if "killed" in r)
+        death = dead["t0"] + dead["marks"]["killed"]
+        verdict = min(at for at, phase, task in tl.live
+                      if phase == "lost" and task == dead["task"]
+                      and at >= death)
+        landed = min(at for at, epoch, world in tl.rounds
+                     if (epoch, world) == (1, 2))
+        inside = max(r["t0"] + r["rescales"][0][4]
+                     for r in recs.values() if r["rescales"])
+        log(f"    (a) shrink: launcher returned 0 in {secs:.1f} s; rank 2 "
+            f"(task {dead['task']}) SIGKILLed after version "
+            f"{P22_KILL_VERSION}'s commit; death -> tracker's verdict "
+            f"+{verdict - death:.3f} s -> rescale round (epoch 1, world 2) "
+            f"+{landed - death:.3f} s -> both survivors caught "
+            f"WorldChangedError +{inside - death:.3f} s; both resumed from "
+            f"version {P22_KILL_VERSION} in halves; every stats allreduce "
+            f"counted {MAIN_ROWS} rows; centroids within {err:.3g} of the "
+            f"plain loop; B1 by task and (epoch, world, rank) {b1}")
+        _elastic_times("shrink", recs)
+
+        # (b) grow, against the script's own tracker
+        hold = os.path.join(tmp, "hold.grow")
+        open(hold, "w").close()
+        timeline = {}
+
+        def grow(ctl):
+            deadline = time.monotonic() + W3_TIMEOUT
+            held = [os.path.join(tmp, f"held.grow.{t}") for t in "01"]
+            while not all(os.path.exists(h) for h in held):
+                if ctl.failed():
+                    return   # the spawner reports the failed rank
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 22 grow: the two ranks "
+                                         "never held after version 1")
+                time.sleep(0.01)
+            timeline["spawned"] = time.monotonic()
+            ctl.spawn("2")
+            job = ctl.trackers[0]._default_job()
+            while "2" not in job._joiners:
+                if ctl.failed():
+                    return
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 22 grow: the joiner never "
+                                         "parked")
+                time.sleep(0.01)
+            timeline["parked"] = time.monotonic()
+            os.remove(hold)
+
+        t = time.perf_counter()
+        with _TrackerLog() as tl:
+            _run_rank_processes("--phase22-grow", 1, "22", grow, nranks=2,
+                                tracker_kw=dict(max_workers=3), args=[tmp])
+        grow_secs = time.perf_counter() - t
+        recs = _elastic_records(tmp, "grow")
+        roles = {"0": "survivor", "1": "survivor", "2": "joiner"}
+        if sorted(recs) != sorted(roles):
+            raise AssertionError(f"phase 22 grow: records {sorted(recs)}")
+        b1, err = _check_elastic("grow", recs, oracle["grow"], dict(
+            roles=roles, survivor=([0, 2], [[2, 3, 1, 2]], [0, 2]),
+            joiner=([1, 3], [], [2])))
+        result["grow"] = b1
+        joiner = recs["2"]
+        landed = min(at for at, epoch, world in tl.rounds
+                     if (epoch, world) == (1, 3))
+        spawned = timeline["spawned"]
+        held = [recs[t]["marks"]["released"] - recs[t]["marks"]["held"]
+                for t in "01"]
+        log(f"    (b) grow: {grow_secs:.1f} s; the survivors held after "
+            f"version {P22_HOLD_VERSION} for {[round(h, 3) for h in held]} "
+            f"s; joiner "
+            f"spawned -> parked +{timeline['parked'] - spawned:.3f} s -> "
+            f"rescale round (epoch 1, world 3) +{landed - spawned:.3f} s -> "
+            f"admitted (its init returned) "
+            f"+{joiner['t0'] + joiner['marks']['init'] - spawned:.3f} s; "
+            f"its load_checkpoint was "
+            f"served version {joiner['loads'][0][3]}; every stats "
+            f"allreduce counted {MAIN_ROWS} rows; centroids bit-identical "
+            f"on the three ranks and within {err:.3g} of the plain loop; "
+            f"B1 by task and (epoch, world, rank) {b1}")
+        _elastic_times("grow", recs)
+    log(f"    phase 22 wall {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans_stats_dense=result)
+
+
 def main() -> int:
     import torch
 
@@ -4237,6 +4756,15 @@ def main() -> int:
         if line["name"] in p21:
             line["phase21_launches_by_rank_and_life"] = p21[line["name"]]
     log(f"    phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # 22. elastic membership: k-means shrinks from 3 ranks to 2 and grows
+    # back to 3 at commit boundaries
+    t0 = time.perf_counter()
+    p22 = phase22(torch, km)
+    for line in lines:
+        if line["name"] in p22:
+            line["phase22_launches_by_task_and_world"] = p22[line["name"]]
+    log(f"    phase 22 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -4255,4 +4783,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"],
                          ["--phase21-rank"]):
         sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase22-rank"]:
+        sys.exit(elastic_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase22-grow"]:
+        sys.exit(elastic_rank("grow", sys.argv[4], task=sys.argv[2],
+                              port=int(sys.argv[3])))
     sys.exit(main())

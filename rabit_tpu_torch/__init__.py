@@ -9,8 +9,11 @@ world-of-one ``empty`` engine, the ``pysocket`` engine
 (:mod:`rabit_tpu_torch.engine.pysocket`: the collectives, the async
 pump with bucket fusion, custom reductions) and the fault-tolerant
 ``pyrobust`` engine over it (:mod:`rabit_tpu_torch.engine.robust`,
-with the keepalive launcher :mod:`rabit_tpu_torch.tracker.launch_local`
-and the durable checkpoint tier :mod:`rabit_tpu_torch.ckpt`),
+with the keepalive launcher :mod:`rabit_tpu_torch.tracker.launch_local`,
+the durable checkpoint tier :mod:`rabit_tpu_torch.ckpt` and elastic
+membership: a world that grows or shrinks at a commit boundary raises
+:class:`WorldChangedError`, and :mod:`rabit_tpu_torch.learn.splitrows`
+re-shards the rows),
 the API, k-means
 (:mod:`rabit_tpu_torch.learn.kmeans`), gradient-boosted trees
 (:mod:`rabit_tpu_torch.learn.boosting`), and the wire the engine rides:
@@ -44,7 +47,9 @@ from rabit_tpu_torch.api import (
 )
 from rabit_tpu_torch.ckpt import CheckpointSkewError
 from rabit_tpu_torch.engine.interface import AsyncOrderError, CollectiveHandle
-from rabit_tpu_torch.engine.pysocket import AsyncPumpError
+from rabit_tpu_torch.engine.pysocket import (AsyncPumpError,
+                                             TrackerLostError,
+                                             WorldChangedError)
 from rabit_tpu_torch.engine.robust import RecoveryError
 from rabit_tpu_torch.ops import (BITAND, BITOR, BITXOR, MAX, MIN, PROD, SUM,
                                  ReduceOp)
@@ -59,7 +64,7 @@ __all__ = [
     "allgather_async", "broadcast", "load_checkpoint", "checkpoint",
     "lazy_checkpoint", "version_number", "device_epoch",
     "AsyncOrderError", "AsyncPumpError", "RecoveryError", "CollectiveHandle",
-    "CheckpointSkewError",
+    "CheckpointSkewError", "TrackerLostError", "WorldChangedError",
     "MAX", "MIN", "SUM", "PROD", "BITOR", "BITAND", "BITXOR", "ReduceOp",
     "Serializable", "RabitError", "__version__",
 ]

@@ -4,8 +4,10 @@ PyTorch-port counterpart of :class:`rabit_tpu.engine.pysocket.PySocketEngine`
 (its own copy: the port imports nothing of the JAX package), carried as
 far as its collective API: tracker rendezvous, persistent
 worker-worker links, the core collectives, the async progress pump with
-small-op bucket fusion, custom reductions, the hierarchical schedule
-and the heartbeat liveness channel, with the reference's names and
+small-op bucket fusion, custom reductions, the hierarchical schedule,
+the heartbeat liveness channel and the elastic epoch poll
+(:class:`WorldChangedError`; the rescale itself is the robust layer's,
+:mod:`rabit_tpu_torch.engine.robust`), with the reference's names and
 structure so that each member has its counterpart there.  It
 is byte-compatible on the wire: port ranks and reference ranks form one
 world, and for the same inputs every rank gets the same bits either
@@ -29,8 +31,6 @@ Payloads are numpy arrays, as the reference engine moves numpy; a
 ROADMAP A5).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
-elastic rescale (A4b; the robust layer is
-:mod:`rabit_tpu_torch.engine.robust`);
 shared-memory links, the tuning cache and the ``auto``, ``swing`` and
 ``synth`` schedules, wire codecs, chaos injection, telemetry and
 tracing (the reference's ``async.*`` instruments among them, and on
@@ -127,6 +127,30 @@ class TrackerLostError(LinkError):
     """The tracker stayed unreachable across the full registration
     retry budget — the job's coordinator is gone.  A tracker merely
     restarting on the same port reads as a stall, never an error."""
+
+
+class WorldChangedError(RabitError):
+    """The world was rescaled out from under this collective/checkpoint.
+
+    Raised (on every member, consistently) after an elastic membership
+    epoch completes: the tracker reassigned ranks for a grown or shrunk
+    world, so results, replay caches and rank-affine data shards from
+    the old world are void.  The committed checkpoint is NOT lost — the
+    contract is: catch this, call ``load_checkpoint()`` (served from
+    the survivors' RAM replicas or the durable tier), re-shard
+    rank-affine state for the new ``(rank, world)`` (e.g. with
+    :func:`rabit_tpu_torch.learn.splitrows.rows_for_rank`), and resume
+    the loop from the returned version.  Carries ``old_world``,
+    ``new_world`` and the new ``epoch``."""
+
+    def __init__(self, old_world: int, new_world: int, epoch: int) -> None:
+        super().__init__(
+            f"world rescaled from {old_world} to {new_world} rank(s) "
+            f"(membership epoch {epoch}): reload the last committed "
+            f"checkpoint and re-shard rank-affine state")
+        self.old_world = int(old_world)
+        self.new_world = int(new_world)
+        self.epoch = int(epoch)
 
 
 class AsyncPumpError(RuntimeError):
@@ -822,8 +846,44 @@ class PySocketEngine(Engine):
 
     @property
     def epoch(self) -> int:
-        """Membership epoch of the topology this engine runs under."""
+        """Membership epoch of the topology this engine runs under
+        (bumped by the tracker per completed elastic rescale round)."""
         return self._epoch
+
+    # One SHORT dial per commit-boundary epoch poll: the poll is
+    # best-effort by contract, so it must never inherit the rendezvous
+    # dial's retry schedule (up to rabit_timeout_sec against a
+    # SYN-dropping tracker, at EVERY commit on EVERY rank).
+    EPOCH_POLL_TIMEOUT_SEC = 2.0
+
+    def _tracker_epoch_poll(self) -> Optional[tuple[int, int, int]]:
+        """One-shot ``cmd=epoch`` membership poll: reports this rank's
+        committed version, returns ``(epoch, target_epoch,
+        target_world)`` — or None when the tracker is unreachable,
+        which callers must read as "no change" (an elastic job keeps
+        training through a coordinator outage; only rendezvous truly
+        needs the tracker).  Dials raw with a short timeout and no
+        retries — a restarting tracker costs a commit at most
+        EPOCH_POLL_TIMEOUT_SEC, never the connect budget."""
+        try:
+            sock = socket.create_connection(
+                self._tracker_addr, timeout=self.EPOCH_POLL_TIMEOUT_SEC)
+        except OSError:
+            return None
+        try:
+            sock.settimeout(self.EPOCH_POLL_TIMEOUT_SEC)
+            P.send_hello(sock, P.CMD_EPOCH, self._task_id,
+                         self._world_hint, job=self._job_id)
+            P.send_u32(sock, self._version & 0xFFFFFFFF)
+            return (P.recv_u32(sock), P.recv_u32(sock), P.recv_u32(sock))
+        except OSError as e:
+            log("epoch poll failed (tracker restarting?): %s", e)
+            return None
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def tracker_print(self, msg: str) -> None:
         # One-shot command connect, best effort by design: a tracker
@@ -1382,15 +1442,36 @@ class PySocketEngine(Engine):
         """Progress-thread failure path: no bare thread tracebacks — the
         error is logged and re-raises at the caller's ``wait()`` (a link
         failure surfaces there as :class:`LinkError`, same as the
-        blocking path).  The reference's ``WorldChangedError`` branch
-        (drain the queue, realign the wait cursor, keep the pump alive
-        for a rescaled world) comes with elastic membership, ROADMAP
-        A4b."""
+        blocking path)."""
         log("async collective failed in the progress thread: %s: %s",
             type(exc).__name__, exc)
         for h in handles:
             if not h.done():
                 h._fail(exc)
+        if isinstance(exc, WorldChangedError):
+            # Every queued op was issued against the old world: fail
+            # them all NOW with the same typed error (their issue-order
+            # slots can never run), but keep the pump alive — after the
+            # app reloads the checkpoint the async stream is usable
+            # again, unlike a pump death.
+            with self._aq_cv:
+                drained = [it for it in self._aq if it is not None]
+                self._aq = collections.deque(
+                    it for it in self._aq if it is None)
+                self._aq_inflight -= len(drained)
+                # Realign the wait cursor past every drained slot: the
+                # app catches the rescale at ONE wait() and abandons
+                # the other failed handles (their wait() still raises
+                # the stored error) — the first op issued after the
+                # reload must not trip the issue-order check on slots
+                # that can never run.  Under _aq_cv so a concurrent
+                # _before_wait cannot clobber the realignment.
+                self._wait_idx = self._issue_idx
+                self._aq_cv.notify_all()
+            for _fn, hs in drained:
+                for h in hs:
+                    if not h.done():
+                        h._fail(exc)
 
     def _submit(self, fn: Callable[[], None], handles: tuple) -> None:
         # The pump-death check and the enqueue must be one atomic

@@ -39,6 +39,14 @@ Protocol:
   ``recover`` rendezvous; the relaunched rank registers with ``start``,
   loads the checkpoint from the agreed newest holder, replays cached
   results, and rejoins the op it died in mid-flight.
+* With ``rabit_elastic`` set, every commit boundary polls the tracker
+  (``cmd=epoch``); a pending rescale epoch rides the ack round's
+  consensus word (``K_RESCALE``), the whole world re-registers with
+  ``cmd=rescale``, and a world that changed size or ranks raises
+  :class:`WorldChangedError` on every member — the app reloads the
+  committed version and re-shards for the new ``(rank, world)``.  A
+  recover round that the tracker completed as a rescale (a death the
+  elastic floor absorbs) resolves the same way.
 * ``RABIT_MOCK`` kill-points — ``rank,version,seqno,ndeath`` tuples,
   ``;``-separated, seqno ``1<<20`` = at checkpoint, ``(1<<20)+1`` = at
   load — drive deterministic fault injection (exit 254: the keepalive
@@ -49,13 +57,11 @@ Recovery payloads ride the plain tree flood from the agreed root
 (everyone receives), as the reference's do.
 
 Left out until their ROADMAP items, each refused with
-:class:`NotImplementedError` where a knob would ask for it: elastic
-membership (``rabit_elastic``: rescale epochs at commit boundaries,
-``WorldChangedError``, and the writer re-election after a rescale)
-(A4b); online adaptation (``rabit_adapt``) and telemetry (A8), which
-also holds the reference's checkpoint counters and trace events.  The
-port's tracker hands out epoch 0 and a fixed world, so a recover round
-that moved either raises, naming A4b.
+:class:`NotImplementedError` where a knob would ask for it: online
+adaptation (``rabit_adapt``, whose schedule-switch epochs reach
+:meth:`PyRobustEngine._sched_epoch` here only as an elastic member
+swap that kept every survivor's rank) and telemetry (A8), which also
+holds the reference's checkpoint counters and trace events.
 """
 from __future__ import annotations
 
@@ -68,7 +74,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from rabit_tpu_torch import ckpt as ckpt_mod
-from rabit_tpu_torch.engine.pysocket import PySocketEngine
+from rabit_tpu_torch.engine.pysocket import (PySocketEngine,
+                                             WorldChangedError)
 from rabit_tpu_torch.ops import ReduceOp
 from rabit_tpu_torch.tracker import protocol as P
 from rabit_tpu_torch.transport import LinkError
@@ -104,8 +111,10 @@ K_LOCAL_CHK = 64    # this checkpoint carries a local model
 # call sequences diverged.
 K_DIFF_OP = 128
 # Set alongside K_CHECK_ACK by an elastic rank whose commit-boundary
-# tracker poll saw a pending rescale epoch (A4b).  The port never sets
-# it, and raises if a reference peer's ack round carries it.
+# tracker poll saw a pending rescale epoch.  The OR-merge makes the
+# decision uniform — if ANY rank saw it, every rank's ack round agrees
+# on it and the whole world enters the cmd=rescale re-rendezvous
+# together, exactly at the commit boundary.
 K_RESCALE = 256
 
 # Sentinel seqnos for kill-points at non-collective calls.
@@ -152,6 +161,11 @@ class PyRobustEngine(PySocketEngine):
         # Durable tier (rabit_ckpt_dir): None when not configured.
         self._ckpt_store: Optional[ckpt_mod.CheckpointStore] = None
         self._ckpt_writers = 0
+        self._ckpt_dir_raw = ""   # unexpanded: re-elected after rescale
+        self._ckpt_keep = 3
+        # Elastic membership (rabit_elastic): poll the tracker at every
+        # commit boundary and re-rendezvous when an epoch is pending.
+        self._elastic = False
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -181,9 +195,14 @@ class PyRobustEngine(PySocketEngine):
         writers_raw = params.get("rabit_ckpt_writers")
         if writers_raw in (None, ""):
             writers_raw = os.environ.get("RABIT_CKPT_WRITERS", "")
+        self._elastic = str(
+            params.get("rabit_elastic")
+            or os.environ.get("RABIT_ELASTIC", "0")).lower() in _TRUE
         super().init(params)  # refusals, then rendezvous: rank known
         if ckpt_dir:
             check(ckpt_keep >= 1, "rabit_ckpt_keep must be >= 1")
+            self._ckpt_dir_raw = ckpt_dir
+            self._ckpt_keep = ckpt_keep
             # Writer election: the first rabit_ckpt_writers ranks persist.
             # Default: rank 0 plus the ranks that ring-replicate its
             # local model — the same set whose RAM already holds the
@@ -213,12 +232,11 @@ class PyRobustEngine(PySocketEngine):
         knobs whose machinery is not ported (each read as the reference
         reads it, so that a value the reference treats as off passes)."""
         PySocketEngine._refuse_unported(params, param_or_env)
-        for key, item in (("rabit_elastic", "A4b"), ("rabit_adapt", "A8")):
-            raw = params.get(key) or os.environ.get(key.upper(), "0")
-            if str(raw).lower() in _TRUE:
-                raise NotImplementedError(
-                    f"{key}={raw!r} is not ported to rabit_tpu_torch yet "
-                    f"(ROADMAP {item})")
+        raw = params.get("rabit_adapt") or os.environ.get("RABIT_ADAPT", "0")
+        if str(raw).lower() in _TRUE:
+            raise NotImplementedError(
+                f"rabit_adapt={raw!r} is not ported to rabit_tpu_torch yet "
+                f"(ROADMAP A8)")
 
     def shutdown(self) -> None:
         self._fence()  # async stream drains before straggler serving
@@ -318,18 +336,23 @@ class PyRobustEngine(PySocketEngine):
             else max(self._timeout, self.TRACKER_BARRIER_MIN_SEC))
         history: list[tuple[int, float, str]] = []
         old_world, old_epoch = self._world, self._epoch
+        old_rank = self._rank
         while True:
             try:
                 self._rendezvous(P.CMD_RECOVER)
                 if (self._world, self._epoch) != (old_world, old_epoch):
-                    # The reference resolves a moved world or epoch as
-                    # an elastic rescale or a schedule-switch epoch; the
-                    # port's tracker never hands one out.
-                    raise NotImplementedError(
-                        f"the recover round moved the world {old_world} -> "
-                        f"{self._world} or the epoch {old_epoch} -> "
-                        f"{self._epoch}; elastic membership is not ported "
-                        f"to rabit_tpu_torch yet (ROADMAP A4b)")
+                    if (self._world, self._rank) == (old_world, old_rank):
+                        # Same world, same rank, new epoch: membership
+                        # is unchanged for this rank's purposes, so the
+                        # in-flight op and its caches stay valid.
+                        self._sched_epoch(old_epoch)
+                    else:
+                        # The recover round completed as an elastic
+                        # rescale (heartbeat-detected deaths shrank the
+                        # target, or a pending grow resolved while we
+                        # were re-registering): the in-flight op
+                        # belongs to the dead world.
+                        self._world_changed(old_world, old_epoch)
                 return
             except OSError as e:
                 attempt = len(history) + 1
@@ -347,6 +370,84 @@ class PyRobustEngine(PySocketEngine):
                 log("pyrobust: recover rendezvous failed (%s); attempt "
                     "%d/%d", e, attempt, self._recover_attempts)
                 time.sleep(self._backoff_delay_ms(attempt) / 1000.0)
+
+    # ------------------------------------------------------------------
+    # elastic membership
+    # ------------------------------------------------------------------
+    def _world_changed(self, old_world: int, old_epoch: int) -> None:
+        """An elastic rescale landed: reset everything the old world
+        owned and surface the typed error.
+
+        Kept: the committed version and global model (every rank
+        replicates them — that is exactly what the app resumes from)
+        and this rank's durable store contents.  Void: the replay cache
+        and seqno stream (results were computed BY the old world),
+        local-model replicas (ring positions moved; local state is
+        rank-affine and must be rebuilt from the re-sharded data) and
+        any un-committed pending checkpoint.  The durable-store handle
+        is re-created because the writer election and the ``{rank}``
+        expansion follow the new rank."""
+        self._cache.clear()
+        self._seq = 0
+        self._local_store.clear()
+        self._local = None
+        self._pending_lazy = None
+        self._pending_global = b""
+        self._has_pending_local = False
+        if self._ckpt_dir_raw:
+            self._ckpt_store = ckpt_mod.CheckpointStore(
+                ckpt_mod.expand_dir(self._ckpt_dir_raw, self._rank),
+                rank=self._rank, keep=self._ckpt_keep)
+        log("pyrobust: membership epoch %d -> %d: world %d -> %d, now "
+            "rank %d; resuming from committed v%d", old_epoch, self._epoch,
+            old_world, self._world, self._rank, self._version)
+        raise WorldChangedError(old_world, self._world, self._epoch)
+
+    def _sched_epoch(self, old_epoch: int) -> None:
+        """A SAME-world, same-rank epoch landed: an elastic member swap
+        kept every survivor's rank (the reference also lands its
+        adaptive controller's schedule-switch epochs here; that
+        controller is ROADMAP A8).  Nothing rank-affine moved, so —
+        unlike :meth:`_world_changed` — the replay cache, seqno stream
+        and local replicas stay VALID and are kept: cached results are
+        value-level bytes, and a relaunched straggler mid-span still
+        replays against them.  No WorldChangedError: the app never
+        notices."""
+        log("pyrobust: membership epoch %d -> %d (world %d and rank %d "
+            "unchanged)", old_epoch, self._epoch, self._world, self._rank)
+
+    def _poll_rescale_pending(self) -> bool:
+        """Commit-boundary tracker poll: is a rescale epoch pending?
+        Unreachable tracker == "no" — training never stalls on the
+        poll; the consensus OR of every rank's answer (K_RESCALE)
+        makes the final decision uniform even when polls race the
+        tracker's admission bookkeeping."""
+        polled = self._tracker_epoch_poll()
+        if polled is None:
+            return False
+        _epoch, target_epoch, target_world = polled
+        if target_epoch <= self._epoch:
+            return False
+        log("pyrobust: rescale pending at the tracker: epoch %d -> %d "
+            "(world %d -> %d); re-rendezvousing at this commit boundary",
+            self._epoch, target_epoch, self._world, target_world)
+        return True
+
+    def _cooperative_rescale(self) -> None:
+        """The agreed ack round carried K_RESCALE: every member leaves
+        the commit boundary together into the tracker's rescale
+        rendezvous.  If the target evaporated meanwhile (a parked
+        joiner died), the round completes at the unchanged world and
+        epoch — links are rewired, nothing is raised, training simply
+        continues."""
+        old_world, old_epoch = self._world, self._epoch
+        old_rank = self._rank
+        self._rendezvous(P.CMD_RESCALE)
+        if (self._world, self._epoch) != (old_world, old_epoch):
+            if (self._world, self._rank) == (old_world, old_rank):
+                self._sched_epoch(old_epoch)
+            else:
+                self._world_changed(old_world, old_epoch)
 
     # ------------------------------------------------------------------
     # the recovery state machine
@@ -873,6 +974,10 @@ class PyRobustEngine(PySocketEngine):
         self._pending_local = local_model or b""
         if self._world == 1:
             self._commit_checkpoint()
+            if self._elastic and self._poll_rescale_pending():
+                # A lone rank can still grow: joiners parked at the
+                # tracker make the next commit a rescale boundary too.
+                self._cooperative_rescale()
             return
         flag = K_CHECKPOINT | (K_LOCAL_CHK if self._has_pending_local else 0)
         version_before = self._version
@@ -891,15 +996,16 @@ class PyRobustEngine(PySocketEngine):
                     # is unaffected.
                     self._rendezvous_recover()
             self._commit_checkpoint()
-        self._recover_exec(K_CHECK_ACK, want_result=False)
-        if self._last_agreed & K_RESCALE:
-            # An elastic peer's poll saw a pending rescale epoch: the
-            # world leaves this commit boundary for a rescale
-            # rendezvous the port does not have.
-            raise NotImplementedError(
-                "a peer asked for an elastic rescale at this checkpoint; "
-                "elastic membership is not ported to rabit_tpu_torch yet "
-                "(ROADMAP A4b)")
+        ack = K_CHECK_ACK
+        if self._elastic and self._poll_rescale_pending():
+            ack |= K_RESCALE
+        self._recover_exec(ack, want_result=False)
+        if self._elastic and (self._last_agreed & K_RESCALE):
+            # Some rank's poll saw a pending epoch; the OR-merged ack
+            # made it everyone's decision.  The commit above is already
+            # durable on every survivor — this raises WorldChangedError
+            # once the new topology lands.
+            self._cooperative_rescale()
 
     def load_checkpoint(self):
         self._fence()

@@ -11,15 +11,17 @@ once per life, relaunches a worker killed by a signal within
 watchdog (``watchdog_sec``) or heartbeat detector (``heartbeat_sec``)
 names — for a free restart with the same ``RABIT_NUM_TRIAL``.  With
 ``ckpt_dir`` the workers persist every committed version there, so a
-job whose every rank died resumes from disk.
+job whose every rank died resumes from disk.  With ``min_workers`` /
+``max_workers`` the job is elastic: a signal-killed worker whose
+restart budget is spent leaves the job and the world shrinks at the
+next commit boundary; ``state_dir`` journals the tracker's state.
 
 Usage:
     python -m rabit_tpu_torch.tracker.launch_local -n 4 python worker.py
 
-Left out until their ROADMAP items, each refused where it is asked for
-(an argparse error from the CLI, :class:`NotImplementedError` from
-:func:`launch`): elastic membership and the tracker's state journal
-(A4b); telemetry and tracing (A8).
+Left out until ROADMAP A8, each refused where it is asked for (an
+argparse error from the CLI, :class:`NotImplementedError` from
+:func:`launch`): telemetry and tracing.
 
 Differs from the reference on purpose: the stall killer spares a life
 that has not yet registered with the tracker for up to
@@ -53,10 +55,7 @@ START_GRACE_SEC = 60.0
 
 # Where each launcher option the port refuses lands in ROADMAP.md's
 # queue A: (launch() keyword, CLI flag, item).
-_UNPORTED = (("min_workers", "--min-workers", "A4b"),
-             ("max_workers", "--max-workers", "A4b"),
-             ("state_dir", "--state-dir", "A4b"),
-             ("obs_dir", "--obs-dir", "A8"),
+_UNPORTED = (("obs_dir", "--obs-dir", "A8"),
              ("obs_port", "--obs-port", "A8"),
              ("trace_dir", "--trace-dir", "A8"))
 
@@ -204,6 +203,20 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
     ``job``: name the tenant (``rabit_job_id`` / ``RABIT_JOB_ID``);
     workers register under this job on the tracker.
 
+    ``min_workers`` / ``max_workers``: **elastic membership** — the
+    tracker admits late ``cmd=start`` joiners up to the ceiling and
+    turns deaths into a scale-*down* (never below the floor) instead
+    of insisting on a same-rank relaunch; workers get
+    ``RABIT_ELASTIC=1`` so the robust engine polls for rescale epochs
+    at checkpoint-commit boundaries.  A signal-killed worker whose
+    restart budget is spent *leaves* the job (the world shrinks)
+    rather than failing it.
+
+    ``state_dir``: journal the tracker's control-plane state through
+    the atomic checkpoint-store tier, so a tracker restarted on the
+    same port (or a fresh launcher pointed at the same state and ckpt
+    directories) resumes the job.
+
     ``watchdog_sec``: kill + restart workers the tracker reports as hung
     (registered peers are waiting on the rendezvous barrier, this worker
     stayed silent that long; a life that has not registered yet gets
@@ -223,9 +236,7 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
     Returns 0 if every worker finished cleanly, else the first non-restart
     non-zero exit code.
     """
-    given = dict(min_workers=min_workers,
-                 max_workers=max_workers, state_dir=state_dir,
-                 obs_dir=obs_dir, obs_port=obs_port, trace_dir=trace_dir)
+    given = dict(obs_dir=obs_dir, obs_port=obs_port, trace_dir=trace_dir)
     for key, _flag, item in _UNPORTED:
         if given[key] is not None:
             raise NotImplementedError(
@@ -233,11 +244,14 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
                 f"rabit_tpu_torch yet (ROADMAP {item})")
     if job is not None:
         P.require_valid_job_id(job)
+    elastic = min_workers is not None or max_workers is not None
     extra_env = dict(extra_env or {})
     if ckpt_dir is not None:
         extra_env.setdefault("RABIT_CKPT_DIR", str(ckpt_dir))
     if heartbeat_sec:
         extra_env.setdefault("RABIT_HEARTBEAT_SEC", str(heartbeat_sec))
+    if elastic:
+        extra_env.setdefault("RABIT_ELASTIC", "1")
     failures: list[int] = []
     live: dict[int, subprocess.Popen] = {}
     started: dict[int, float] = {}
@@ -252,7 +266,9 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
                                heartbeat_sec)
     tracker = Tracker(n_workers, watchdog_sec=watchdog_sec,
                       on_stall=on_stall if watchdog_sec else None,
-                      on_dead=on_dead if heartbeat_sec else None)
+                      on_dead=on_dead if heartbeat_sec else None,
+                      min_workers=min_workers, max_workers=max_workers,
+                      state_dir=state_dir)
     tracker.start()
 
     def keepalive(worker_id: int) -> None:
@@ -313,6 +329,22 @@ def launch(n_workers: int, cmd: list[str], max_trials: int = 10,
                 sys.stderr.flush()
                 time.sleep(delay_ms / 1000.0)
                 continue
+            if elastic and is_dead_exit(code) and not aborting.is_set():
+                # Elastic leave: the restart budget (if any) is spent —
+                # a preempted/killed worker departs instead of failing
+                # the job.  Tell the tracker directly: with heartbeats
+                # armed this is redundant (the EOF verdict fired first),
+                # without them it is the ONLY signal that turns the
+                # death into a scale-down at the next commit boundary
+                # (never below min_workers); if the floor cannot absorb
+                # it, the survivors' stall watchdog / link timeouts
+                # still bound the job.
+                sys.stderr.write(
+                    f"[launch_local] elastic: worker {worker_id} left "
+                    f"the job (exit {code}); world scales down\n")
+                sys.stderr.flush()
+                tracker.note_dead(str(worker_id), job=job)
+                return
             if code != 0 and not aborting.is_set():
                 failures.append(code)
                 # A permanent failure means the rendezvous barrier can
@@ -363,6 +395,16 @@ def main(argv: list[str] | None = None) -> None:
                          "arms the tracker's proactive failure detector "
                          "— hung ranks are killed+relaunched without a "
                          "collective op having to touch them")
+    ap.add_argument("--min-workers", type=int, default=None,
+                    help="elastic floor: a worker death becomes a "
+                         "scale-down (never below this) at the next "
+                         "commit boundary; sets RABIT_ELASTIC=1")
+    ap.add_argument("--max-workers", type=int, default=None,
+                    help="elastic ceiling: late joiners are admitted "
+                         "at commit boundaries up to this world size")
+    ap.add_argument("--state-dir", default=None,
+                    help="journal the tracker's control-plane state "
+                         "here (a restarted tracker resumes the job)")
     for _key, flag, item in _UNPORTED:
         ap.add_argument(flag, default=None,
                         help=f"not ported yet (ROADMAP {item})")
@@ -382,7 +424,10 @@ def main(argv: list[str] | None = None) -> None:
     sys.exit(launch(args.num_workers, args.cmd, args.max_trials,
                     args.verbose, watchdog_sec=args.watchdog,
                     max_restarts=args.max_restarts, ckpt_dir=args.ckpt_dir,
-                    heartbeat_sec=args.heartbeat, job=args.job))
+                    heartbeat_sec=args.heartbeat,
+                    min_workers=args.min_workers,
+                    max_workers=args.max_workers,
+                    state_dir=args.state_dir, job=args.job))
 
 
 if __name__ == "__main__":

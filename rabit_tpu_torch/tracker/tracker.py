@@ -1,13 +1,17 @@
-"""Rendezvous tracker — the control plane's rendezvous core and liveness.
+"""Rendezvous tracker — the control plane's rendezvous core, liveness,
+elastic membership and journal.
 
 PyTorch-port counterpart of :mod:`rabit_tpu.tracker.tracker`, cut to the
-rendezvous core and the liveness layer: it assigns ranks (stable per
-task_id across restarts), computes the tree+ring topology plus every
-schedule's extra links, hands each worker its connect/accept lists,
-relays worker log lines, decides which workers are alive, and
-terminates when every job it served has completed or was collected as
-an orphan.  Its replies equal the reference tracker's field for field,
-so port ranks and reference ranks can register with either tracker.
+rendezvous core, the liveness layer, elastic membership and the durable
+journal: it assigns ranks (stable per task_id across restarts),
+computes the tree+ring topology plus every schedule's extra links,
+hands each worker its connect/accept lists, relays worker log lines,
+decides which workers are alive, grows and shrinks a job's world at
+its commit boundaries, journals its state so a restarted tracker
+resumes, and terminates when every job it served has completed or was
+collected as an orphan.  Its replies equal the reference tracker's
+field for field, so port ranks and reference ranks can register with
+either tracker.
 
 As in the reference:
 
@@ -31,21 +35,36 @@ As in the reference:
   ``MAGIC_JOB``; the classic hello lands in the ``default`` job), each
   with its own :class:`JobState`; every liveness verdict is scoped to
   its job.
+* **Elastic membership** (``min_workers``/``max_workers``): a
+  non-member ``cmd=start`` registrant is parked as a *joiner* (up to
+  ``max_workers``), and a death — a heartbeat verdict, a registrant
+  lost while parked, or the launcher's ``note_dead`` — becomes a
+  *scale-down* (never below ``min_workers``).  Either sets a pending
+  TARGET world.  Members learn of it at commit boundaries
+  (``cmd=epoch`` polls) and re-register with ``cmd=rescale``; the round
+  completes at the target, survivors keep their rank order, joiners
+  compact onto the end (sorted by task_id), and the epoch in every
+  topology reply is bumped.
+* **Restartable control plane** (``state_dir``): every mutation is
+  journaled through :class:`~rabit_tpu_torch.ckpt.CheckpointStore` in
+  the reference's layout (a JSON object, sorted keys, CRC-stamped
+  blob), so a tracker restarted on the same port — port or reference —
+  replays it and the workers' retries bridge the gap.
 
-Not ported yet, each with its ROADMAP item: elastic membership
-(``rescale``/``epoch``, the scale-down a death verdict triggers), the
-durable journal and the formation barrier (A4b); the XLA coordinator
-service (``jaxsvc``, A5); obs telemetry (a heartbeat channel's obs
-frames count as beats and their payload is dropped; beats are never
-echoed), the adaptive controller, admission limits, HTTP and the CLI
-(A8).  A command of those (``rescale``, ``epoch``, ``formbar``,
-``jaxsvc``) gets the reference's treatment of an unknown command: the
-tracker logs it and closes the connection.  ``epoch`` is 0 in every
-reply, ``sched`` is "" and ``demoted`` is empty.
+Not ported yet, each with its ROADMAP item: the formation barrier
+(``formbar``) and the XLA coordinator service (``jaxsvc``, A5); obs
+telemetry (a heartbeat channel's obs frames count as beats and their
+payload is dropped; beats are never echoed), the adaptive controller,
+admission limits, HTTP and the CLI (A8).  ``formbar`` and ``jaxsvc``
+get the reference's treatment of an unknown command: the tracker logs
+it and closes the connection.  ``sched`` is "" and ``demoted`` is
+empty in every reply, and the journal holds no formation-barrier
+fields.
 """
 from __future__ import annotations
 
 import collections
+import json
 import os
 import selectors
 import socket
@@ -56,6 +75,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from rabit_tpu_torch import ckpt as ckpt_mod
 from rabit_tpu_torch.sched import topo as sched_topo
 from rabit_tpu_torch.sched import tuner as sched_tuner
 from rabit_tpu_torch.tracker import protocol as P
@@ -155,18 +175,45 @@ class JobState:
         self._hb_lock = threading.Lock()
         # Job-scoped liveness/restart timeline.
         self._events: collections.deque = collections.deque(maxlen=2048)
-        # Every task with an unresolved loss verdict (heartbeat EOF or
-        # deadline, registrant sweep, supervisor note_dead) — cleared by
-        # re-registration or a fresh heartbeat channel.  The orphan
-        # GC's evidence that the job's members vanished rather than
-        # went quiet.
+        # -- elastic membership state ----------------------------------
+        self._epoch = 0
+        # Pending rescale: the next rendezvous round completes at this
+        # world instead of n_workers (None = no rescale pending).
+        self._target_world: int | None = None
+        self._dead_tasks: set[str] = set()   # members seen dead, unresolved
+        self._joiners: set[str] = set()      # parked non-member starts
+        # Every task with an unresolved loss verdict of ANY kind
+        # (heartbeat EOF or deadline, registrant sweep, supervisor
+        # note_dead) — cleared by re-registration or a fresh heartbeat
+        # channel.  The orphan GC's evidence that the job's members
+        # vanished rather than went quiet.
         self._lost_tasks: set[str] = set()
-        # One thread runs _finish_round at a time.
+        self._scale_lock = threading.Lock()
+        # One thread runs _finish_round at a time (the accept loop on
+        # round fill, the heartbeat monitor on a target change).
         self._round_lock = threading.Lock()
+        self._committed_version = 0          # max version cmd=epoch reported
+        # -- durable control-plane journal (state_dir) -----------------
+        self._state_store: ckpt_mod.CheckpointStore | None = None
+        self._state_seq = 0
+        self._journal_lock = threading.Lock()
 
+    # -- config (tracker-wide knobs, getattr-safe for bare objects) ----
     @property
     def _registrant_timeout(self) -> float:
         return getattr(self._tracker, "_registrant_timeout", 600.0)
+
+    @property
+    def _elastic(self) -> bool:
+        return getattr(self._tracker, "_elastic", False)
+
+    @property
+    def _min_workers(self) -> int | None:
+        return getattr(self._tracker, "_min_workers", None)
+
+    @property
+    def _max_workers(self) -> int | None:
+        return getattr(self._tracker, "_max_workers", None)
 
     def _tag(self) -> str:
         """Log prefix: the default job keeps the pre-tenant wording."""
@@ -176,7 +223,8 @@ class JobState:
     def job_done(self) -> bool:
         """Job completion.  Before the first round completes the only
         coordinate is the launch count; after it, the job is done when
-        every member shut down."""
+        every CURRENT member shut down (leavers dropped by a rescale
+        owe no goodbye)."""
         if self._members:
             return self._members <= self._shutdown_tasks
         return len(self._shutdown_tasks) >= self.n_workers
@@ -211,7 +259,9 @@ class JobState:
                 return ("every registrant lost before the first round "
                         "completed")
             return None
-        if self._members <= (self._shutdown_tasks | self._lost_tasks):
+        accounted = (self._shutdown_tasks | self._lost_tasks
+                     | self._dead_tasks)
+        if self._members <= accounted:
             return "every member lost without a unanimous goodbye"
         if hb_seen:
             return (f"heartbeat channels gone and the job idle "
@@ -237,6 +287,175 @@ class JobState:
             except OSError:
                 pass
 
+    # -- elastic membership + durable journal --------------------------
+    def _round_size(self) -> int:
+        """How many registrants complete the current rendezvous round:
+        the pending rescale target when one is set, else the world."""
+        return (self._target_world if self._target_world is not None
+                else self.n_workers)
+
+    def _recompute_target(self) -> None:
+        """(Re)derive the pending rescale target from membership deltas
+        (joiners parked, members dead).  Scale-up needs ``max_workers``,
+        scale-down needs ``min_workers`` and never undershoots it; a
+        death the floor cannot absorb is left to the supervisor's
+        same-rank relaunch path (target cleared).  A changed target
+        re-checks round fullness — survivors may already be parked in a
+        recover round that the new, smaller target completes."""
+        if not self._elastic or not self._members:
+            return
+        with self._scale_lock:
+            alive = self._members - self._dead_tasks
+            target = len(alive)
+            admitted = 0
+            if self._max_workers is not None and self._joiners:
+                admitted = min(len(self._joiners),
+                               max(self._max_workers - target, 0))
+                target += admitted
+            if self._dead_tasks:
+                if (self._min_workers is None or not alive
+                        or target < self._min_workers):
+                    target = None  # deaths the elastic floor can't absorb
+            elif target == self.n_workers and not admitted:
+                target = None  # nothing changed
+            changed = target != self._target_world
+            self._target_world = target
+        if not changed:
+            return
+        if target is not None:
+            log("tracker:%s rescale pending -> world %d (epoch %d -> %d; "
+                "%d alive, %d dead, %d joiner(s))", self._tag(), target,
+                self._epoch, self._epoch + 1, len(alive),
+                len(self._dead_tasks), len(self._joiners))
+            self._events.append({
+                "ts": time.time(), "name": "epoch", "phase": "pending",
+                "epoch": self._epoch + 1, "from_world": self.n_workers,
+                "to_world": target})
+        self._journal()
+        self._maybe_finish_round()
+
+    def _maybe_finish_round(self) -> None:
+        """Complete the rendezvous round if the (possibly just-changed)
+        target makes the parked registrants a full house."""
+        with self._pending_lock:
+            full = 0 < self._round_size() <= len(self._pending)
+        if full:
+            self._finish_round()
+
+    def _journal(self) -> None:
+        """Persist the control-plane state through the atomic ckpt-store
+        machinery (tmp+fsync+rename, CRC-stamped, bounded retention) so
+        a restarted tracker resumes exactly here.  The blob is the
+        reference's JSON object less its formation-barrier fields
+        (ROADMAP A5); ``active_sched`` and ``demoted`` record the empty
+        directive and demotion set every reply carries.  Best-effort: a
+        full disk degrades HA, it never kills the running job."""
+        if self._state_store is None:
+            return
+        with self._journal_lock:
+            # Snapshot with a bounded retry: the accept, heartbeat and
+            # round threads mutate these containers without one global
+            # state lock, and iterating a deque/set mid-mutation raises
+            # RuntimeError — which must never escape into the serve
+            # loop.  A lost race only skips THIS write; the mutation
+            # that raced re-journals right behind it.
+            for _ in range(3):
+                try:
+                    state = {
+                        "job": self.name,
+                        "done": self.done,
+                        "epoch": self._epoch,
+                        "world": self.n_workers,
+                        "rank_of": dict(self._rank_of),
+                        "started": sorted(self._started_tasks),
+                        "shutdown": sorted(self._shutdown_tasks),
+                        "members": sorted(self._members),
+                        # Deaths already detected must survive a crash:
+                        # a dead worker never reconnects to re-earn its
+                        # verdict, so a restart that forgot these would
+                        # recompute the target from "everyone alive"
+                        # and stall the round on corpses.  _joiners are
+                        # deliberately NOT journaled — a parked joiner's
+                        # socket died with the old tracker and its
+                        # retry re-admits it; a phantom restored joiner
+                        # would hold a target slot nothing can fill.
+                        "dead": sorted(self._dead_tasks),
+                        "lost": sorted(self._lost_tasks),
+                        "target_world": self._target_world,
+                        "committed_version": self._committed_version,
+                        "active_sched": {},
+                        "demoted": [],
+                        "events": list(self._events)[-512:],
+                    }
+                    blob = json.dumps(state, sort_keys=True).encode()
+                    break
+                except RuntimeError:
+                    continue
+            else:
+                log("tracker:%s state journal snapshot kept racing "
+                    "mutations; skipping this write", self._tag())
+                return
+            self._state_seq += 1
+            seq = self._state_seq
+            try:
+                self._state_store.persist(seq, state["world"], blob)
+            except OSError as e:
+                log("tracker:%s state journal write failed (seq %d): %s",
+                    self._tag(), seq, e)
+
+    def attach_store(self, store: ckpt_mod.CheckpointStore) -> None:
+        """Wire this job's journal store; the sequence continues above
+        whatever a previous incarnation left on disk."""
+        self._state_store = store
+        self._state_seq = store.newest_version() or 0
+
+    def restore_journal(self) -> bool:
+        """Replay the newest valid journal entry (tracker restart on the
+        same port), the port's or the reference's: rank map, epoch,
+        membership, dead verdicts, pending target and committed version
+        resume where the dead incarnation left them; the liveness
+        timeline survives.  A reference journal's formation barrier and
+        adaptive directive are not replayed (ROADMAP A5, A8).  Returns
+        True when a journal was replayed."""
+        dc = self._state_store.load_latest()
+        if dc is None:
+            return False
+        try:
+            state = json.loads(dc.global_blob.decode())
+        except (ValueError, UnicodeDecodeError) as e:
+            log("tracker:%s state journal unreadable (%s); starting "
+                "fresh", self._tag(), e)
+            return False
+        self._state_seq = dc.version
+        self.done = bool(state.get("done", False))
+        self.n_workers = int(state.get("world", self.n_workers))
+        self._epoch = int(state.get("epoch", 0))
+        self._rank_of = {str(t): int(r)
+                         for t, r in state.get("rank_of", {}).items()}
+        self._started_tasks = set(state.get("started", []))
+        self._shutdown_tasks = set(state.get("shutdown", []))
+        self._members = set(state.get("members", []))
+        self._dead_tasks = set(state.get("dead", []))
+        self._lost_tasks = set(state.get("lost", []))
+        tw = state.get("target_world")
+        self._target_world = int(tw) if tw is not None else None
+        self._committed_version = int(state.get("committed_version", 0))
+        if state.get("active_sched") or state.get("demoted"):
+            log("tracker:%s journal's adaptive directive %r / demoted %r "
+                "not replayed (the adaptive controller is ROADMAP A8)",
+                self._tag(), state.get("active_sched"),
+                state.get("demoted"))
+        for ev in state.get("events", []):
+            self._events.append(ev)
+        self._events.append({"ts": time.time(), "name": "tracker",
+                             "phase": "restart", "epoch": self._epoch,
+                             "world": self.n_workers})
+        log("tracker:%s journal replayed (seq %d): world=%d epoch=%d "
+            "members=%d committed_version=%d", self._tag(), dc.version,
+            self.n_workers, self._epoch, len(self._members),
+            self._committed_version)
+        return True
+
     # -- liveness / heartbeat ------------------------------------------
     def _emit_liveness(self, phase: str, task_id: str, **fields) -> None:
         """One control-plane liveness transition (alive / dead / lost /
@@ -253,10 +472,32 @@ class JobState:
 
     def note_dead(self, task_id: str) -> None:
         """Supervisor-facing death notice: the launcher saw the worker
-        process exit and will not relaunch it.  Without elastic
-        membership (ROADMAP A4b) the loss verdict is all it records —
-        the orphan GC's evidence; nothing is rescaled."""
+        process exit and will not relaunch it (elastic leave).
+        Redundant when the heartbeat channel is armed — its EOF verdict
+        fires first and ``_note_dead`` dedups — but the ONLY death
+        signal the tracker gets in elastic mode without heartbeats.
+        Liveness first, so the timeline orders the loss ahead of the
+        scale-down it triggers.  Outside elastic mode the loss verdict
+        is all it records (the orphan GC's evidence)."""
         self._lost_tasks.add(task_id)
+        if not self._elastic or task_id in self._dead_tasks:
+            return
+        self._emit_liveness("lost", task_id, supervisor=1)
+        self._evict_registrant(task_id, "supervisor reported it dead")
+        self._note_dead(task_id)
+
+    def _note_dead(self, task_id: str) -> None:
+        """Elastic-mode death bookkeeping: a member seen dead is marked
+        and the rescale target recomputed — scale-down instead of
+        waiting for a same-rank relaunch.  Callers emit the liveness
+        transition FIRST, so the timeline orders the death ahead of the
+        epoch move it causes."""
+        if not self._elastic or task_id not in self._members:
+            return
+        if task_id in self._dead_tasks:
+            return
+        self._dead_tasks.add(task_id)
+        self._recompute_target()
 
     def _hb_register(self, sock: socket.socket, task_id: str,
                      period_ms: int) -> None:
@@ -281,6 +522,11 @@ class JobState:
         self._emit_liveness("alive", task_id,
                             relaunched=1 if relaunched else None)
         self._lost_tasks.discard(task_id)
+        if self._elastic and task_id in self._dead_tasks:
+            # Back from the dead (relaunch beat the scale-down): the
+            # pending target stops counting it out.
+            self._dead_tasks.discard(task_id)
+            self._recompute_target()
 
     def _hb_forget(self, peer: _HbPeer) -> None:
         with self._hb_lock:
@@ -314,6 +560,10 @@ class JobState:
                     self._tag(), peer.task_id)
                 self._emit_liveness("lost", peer.task_id)
                 self._lost_tasks.add(peer.task_id)
+                # Elastic mode: a SIGKILL'd/preempted worker EOFs its
+                # channel instantly and never earns a deadline verdict —
+                # this IS the death signal that triggers scale-down.
+                self._note_dead(peer.task_id)
             return
         peer.buf += data
         while len(peer.buf) >= 4:
@@ -362,6 +612,12 @@ class JobState:
                     "verdict", self._tag(), peer.task_id)
                 self._emit_liveness("alive", peer.task_id, resumed=1)
                 self._lost_tasks.discard(peer.task_id)
+                if self._elastic and peer.task_id in self._dead_tasks:
+                    # The scale-down verdict is withdrawn: the rank is
+                    # demonstrably alive on the SAME channel (no
+                    # relaunch happened), so it keeps its membership.
+                    self._dead_tasks.discard(peer.task_id)
+                    self._recompute_target()
 
     def _hb_mark_dead(self, peer: _HbPeer, phase: str, why: str) -> None:
         """Deadline verdict: evict the corpse from the barrier and tell
@@ -388,6 +644,9 @@ class JobState:
             # NEXT life may already be parked, and closing its socket
             # would abort the very relaunch the kill arranged.
             self._evict_registrant(peer.task_id, why)
+            # Elastic mode: the liveness verdict above precedes this —
+            # scale-down is its consequence on the timeline.
+            self._note_dead(peer.task_id)
         if tracker._on_dead is not None:
             try:
                 tracker._on_dead(peer.task_id)
@@ -401,7 +660,7 @@ class JobState:
         registrant sweep: a SIGSTOP'd rank keeps its sockets open, so
         only the heartbeat verdict can evict it)."""
         with self._pending_lock:
-            if len(self._pending) >= self.n_workers:
+            if len(self._pending) >= self._round_size():
                 return  # full round: the reply loop owns these sockets
             lost = [r for r in self._pending if r.task_id == task_id]
             if not lost:
@@ -424,7 +683,8 @@ class JobState:
         registrants so a partially-filled round re-opens instead of
         wedging the survivors (see Tracker._sweep_registrants)."""
         with self._pending_lock:
-            if not self._pending or len(self._pending) >= self.n_workers:
+            if (not self._pending
+                    or len(self._pending) >= self._round_size()):
                 return
             socks = [r.sock for r in self._pending]
         # selectors (epoll/poll), not select.select: fds above
@@ -450,7 +710,7 @@ class JobState:
         if not dead:
             return
         with self._pending_lock:
-            if len(self._pending) >= self.n_workers:
+            if len(self._pending) >= self._round_size():
                 return  # round filled meanwhile: let it reply
             lost = [r for r in self._pending if r.sock in dead]
             self._pending = [r for r in self._pending
@@ -462,18 +722,29 @@ class JobState:
                 "the rendezvous barrier; dropping it and re-opening "
                 "the round (its restart will re-register)",
                 self._tag(), reg.task_id, reg.cmd)
+            # Liveness BEFORE any membership/topology consequence:
+            # the timeline must order the loss causally ahead of the
+            # rescale/round it triggers.
             self._emit_liveness("lost", reg.task_id, barrier=1)
             self._lost_tasks.add(reg.task_id)
             try:
                 reg.sock.close()
             except OSError:
                 pass
+            if self._elastic:
+                if reg.task_id in self._joiners:
+                    # A joiner that died while parked stops holding
+                    # a slot in the pending target.
+                    self._joiners.discard(reg.task_id)
+                    self._recompute_target()
+                elif reg.task_id in self._members:
+                    self._note_dead(reg.task_id)
 
     # -- rendezvous ----------------------------------------------------
     def register(self, sock: socket.socket, cmd: str, task_id: str,
                  host: str, port: int) -> None:
-        """Park one start/recover registrant in this job's rendezvous
-        barrier (and complete the round if it fills)."""
+        """Park one start/recover/rescale registrant in this job's
+        rendezvous barrier (and complete the round if it fills)."""
         self.last_activity = time.monotonic()
         self._registered_at[task_id] = self.last_activity
         self._lost_tasks.discard(task_id)
@@ -499,9 +770,24 @@ class JobState:
                 self._round_started = time.monotonic()
             self._pending.append(
                 _Registrant(sock, task_id, host, port, cmd))
-            full = 0 < self.n_workers <= len(self._pending)
-        if full:
-            self._finish_round()
+        if self._elastic:
+            if task_id in self._dead_tasks:
+                # A presumed-dead member registered — ANY cmd proves
+                # life (a supervisor relaunch's fresh start, or a live
+                # member whose abandoned registration socket the sweep
+                # mistook for a death retrying its recover/rescale) —
+                # so it must not stay counted out of the pending target.
+                self._dead_tasks.discard(task_id)
+                self._recompute_target()
+            elif (cmd == P.CMD_START
+                    and self._members and task_id not in self._members
+                    and self._max_workers is not None):
+                # Late joiner: parks until a rescale round admits it.
+                if task_id not in self._joiners:
+                    self._joiners.add(task_id)
+                    self._emit_liveness("join_request", task_id)
+                    self._recompute_target()
+        self._maybe_finish_round()
 
     def _assign_ranks(self, regs: list[_Registrant] | None = None) -> None:
         # Shuffle the free-rank pool before handing ranks to NEW task
@@ -536,6 +822,40 @@ class JobState:
         for reg in regs:
             if reg.task_id not in self._rank_of:
                 self._rank_of[reg.task_id] = next(it)
+
+    def _assign_ranks_rescale(self, regs: list[_Registrant],
+                              world: int) -> None:
+        """Deterministic rank reassignment for a rescale round:
+        surviving members keep their relative (old-rank) order — a pure
+        scale-up moves nobody — and joiners follow, sorted by task_id,
+        compacting the rank space to exactly ``[0, world)``."""
+        old = sorted((r for r in regs if r.task_id in self._rank_of),
+                     key=lambda r: self._rank_of[r.task_id])
+        new = sorted((r for r in regs if r.task_id not in self._rank_of),
+                     key=lambda r: r.task_id)
+        self._rank_of = {reg.task_id: i for i, reg in enumerate(old + new)}
+        assert len(self._rank_of) == world
+
+    def _select_round_locked(self, world: int
+                             ) -> tuple[list[_Registrant],
+                                        list[_Registrant]]:
+        """Pick which parked registrants form this round (caller holds
+        ``_pending_lock``).  Normally everyone; when MORE are parked
+        than the round admits (joiners beyond ``max_workers``), members
+        and already-ranked tasks go first, then joiners by task_id —
+        the extras stay parked for a later epoch."""
+        pending = list(self._pending)
+        if len(pending) <= world:
+            return pending, []
+        core = [r for r in pending
+                if not self._members or r.task_id in self._members
+                or r.task_id in self._rank_of]
+        rest = sorted((r for r in pending if r not in core),
+                      key=lambda r: r.task_id)
+        chosen = (core + rest)[:world]
+        chosen_ids = {id(r) for r in chosen}
+        extras = [r for r in pending if id(r) not in chosen_ids]
+        return chosen, extras
 
     def _topo_groups(self, by_rank: dict, world: int) -> list[int]:
         """Host-group handout for the topology-aware schedules: one
@@ -573,23 +893,57 @@ class JobState:
         replied to and closed.  Survivors that already got a topology
         naming the dead worker will fail link setup and come back with
         cmd=recover.
+
+        When a rescale target is pending the round IS the rescale: it
+        completed at the target world, so membership, ranks and the
+        epoch move here — liveness events for the deaths/joins that
+        caused it were already emitted, so the timeline orders cause
+        before effect.
         """
         with self._round_lock:
-            world = self.n_workers
+            # One consistent read of the pending target decides BOTH
+            # the round size and whether this round is a rescale: a
+            # concurrent _recompute_target must not make them disagree
+            # and ship a topology whose world and rank space come from
+            # different targets.  A target that changes after this read
+            # opens the next round (_admit_parked below re-derives it).
+            with self._scale_lock:
+                target = self._target_world
+            rescale = target is not None
+            world = target if rescale else self.n_workers
             with self._pending_lock:
                 if not 0 < world <= len(self._pending):
                     return  # raced: another thread already served it
-                regs = self._pending[:world]
-                self._pending = self._pending[world:]
-                self._round_started = (time.monotonic() if self._pending
+                regs, extras = self._select_round_locked(world)
+                self._pending = extras
+                self._round_started = (time.monotonic() if extras
                                        else None)
-            self._assign_ranks(regs)
-            members = {r.task_id for r in regs}
+            if rescale:
+                old_world, old_epoch = self.n_workers, self._epoch
+                self._assign_ranks_rescale(regs, world)
+                self.n_workers = world
+                self._epoch += 1
+                members = {r.task_id for r in regs}
+                with self._scale_lock:
+                    self._target_world = None
+                    self._dead_tasks &= members
+                    self._lost_tasks &= members
+                    self._joiners -= members
+                log("tracker:%s rescale complete — world %d -> %d, epoch "
+                    "%d -> %d (%d member(s))", self._tag(), old_world,
+                    world, old_epoch, self._epoch, len(members))
+                self._events.append({
+                    "ts": time.time(), "name": "epoch", "phase": "rescale",
+                    "epoch": self._epoch, "from_world": old_world,
+                    "to_world": world})
+            else:
+                self._assign_ranks(regs)
+                members = {r.task_id for r in regs}
             by_rank = {self._rank_of[r.task_id]: r for r in regs}
             addr = {rk: (reg.host, reg.port) for rk, reg in by_rank.items()}
             groups = self._topo_groups(by_rank, world)
-            # No elastic epochs and no adaptive controller here: epoch
-            # 0, no demotions, an empty directive.
+            # No adaptive controller here: no demotions, an empty
+            # directive.
             demoted: list[int] = []
             directive = sched_tuner.encode_directive({})
             for rank, reg in sorted(by_rank.items()):
@@ -616,7 +970,7 @@ class JobState:
                     rank=rank, world=world, parent=parent,
                     neighbors=neighbors, ring_prev=rp, ring_next=rn,
                     connect=connect, naccept=naccept,
-                    relaunched=relaunched, epoch=0,
+                    relaunched=relaunched, epoch=self._epoch,
                     groups=groups, sched=directive, demoted=demoted)
                 try:
                     reply.send(reg.sock)
@@ -633,6 +987,36 @@ class JobState:
                 except OSError:
                     pass
             self._members = members
+            self._journal()
+        # Registrants still parked after ANY completed round open the
+        # next epoch's target: joiners beyond max_workers, joiners that
+        # arrived before the FIRST round completed (membership was
+        # empty, so the admission branch could not see them), and
+        # members a concurrent target change dropped from this round.
+        self._admit_parked()
+
+    def _admit_parked(self) -> None:
+        """Sweep the still-parked registrants into the joiner set and
+        re-derive the pending rescale target.  Runs after every
+        completed round — without it, a cmd=start that raced the round
+        it missed would sit parked until its registration socket times
+        out instead of being admitted at the next commit boundary."""
+        if not self._elastic:
+            return
+        if self._max_workers is not None:
+            # cmd=start: ordinary late joiners.  cmd=rescale from a
+            # NON-member: a worker a concurrent target change dropped
+            # from the round it re-registered for — it rejoins at the
+            # next epoch rather than stalling out its parked socket.
+            with self._pending_lock:
+                parked = [r.task_id for r in self._pending
+                          if r.cmd in (P.CMD_START, P.CMD_RESCALE)
+                          and r.task_id not in self._members]
+            fresh = [t for t in parked if t not in self._joiners]
+            for tid in fresh:
+                self._joiners.add(tid)
+                self._emit_liveness("join_request", tid)
+        self._recompute_target()
 
 
 class Tracker:
@@ -645,7 +1029,10 @@ class Tracker:
                  registrant_timeout_sec: float | None = None,
                  heartbeat_miss: float | None = None,
                  on_dead: Optional[Callable[[str], None]] = None,
-                 job_gc_sec: float | None = None):
+                 job_gc_sec: float | None = None,
+                 min_workers: int | None = None,
+                 max_workers: int | None = None,
+                 state_dir: str | None = None):
         """``n_workers`` is the DEFAULT job's world size (and the world
         assumed for a named job whose first registrant sent no world
         hint).
@@ -677,7 +1064,24 @@ class Tracker:
         ``job_gc_sec`` (env ``RABIT_JOB_GC_SEC``, default 30): how long
         a job must sit idle — no parked registrants, no live heartbeat
         channels, every member holding a loss verdict or goodbye —
-        before the orphan sweep collects it."""
+        before the orphan sweep collects it.
+
+        ``min_workers`` / ``max_workers``: enable **elastic
+        membership** (per job).  With ``max_workers`` set, late
+        ``cmd=start`` registrants beyond a job's current membership are
+        admitted as joiners (pending rescale epoch at the next commit
+        boundary); with ``min_workers`` set, a member's death
+        (heartbeat verdict, lost registrant, ``note_dead``) triggers a
+        scale-*down* rescale instead of waiting for a same-rank
+        relaunch — never below the floor.  Leaving both ``None``
+        freezes each job's world at its registration size.
+
+        ``state_dir``: journal the control-plane state through the
+        atomic :class:`~rabit_tpu_torch.ckpt.CheckpointStore` tier so a
+        restarted tracker (same port) resumes every in-flight job.  The
+        default job journals at the ``state_dir`` root; named jobs
+        journal under ``state_dir/<job>/``, and a restart replays ALL
+        of them."""
         self._default_world = n_workers
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -709,10 +1113,23 @@ class Tracker:
             except ValueError:
                 job_gc_sec = 30.0
         self._job_gc_sec = max(float(job_gc_sec), 0.5)
+        # -- elastic membership config (applies to every job) ----------
+        self._min_workers = min_workers
+        self._max_workers = max_workers
+        self._elastic = min_workers is not None or max_workers is not None
         self._jobs_lock = threading.Lock()
         self._jobs: dict[str, JobState] = {
             DEFAULT_JOB: JobState(self, DEFAULT_JOB, n_workers)}
         self._jobs_touched = 0     # jobs that ever admitted a worker
+        # -- durable control-plane journal (state_dir) -----------------
+        self._state_base = str(state_dir) if state_dir else None
+        if self._state_base:
+            default = self._default_job()
+            default.attach_store(ckpt_mod.CheckpointStore(
+                self._state_base, rank=0, keep=3))
+            if default.restore_journal():
+                self._mark_restored(default)
+            self._restore_named_jobs()
         if watchdog_sec is not None and on_stall is not None:
             threading.Thread(target=self._watchdog, daemon=True).start()
         # Registrant-loss sweep: a worker that dies while PARKED in the
@@ -746,11 +1163,45 @@ class Tracker:
             job = self._jobs.get(name)
         return None if job is None or job.done else job
 
+    def _mark_restored(self, job: JobState) -> None:
+        """A journal replayed at startup: the job is mid-flight (it
+        only has a journal because workers registered)."""
+        if not job.touched:
+            job.touched = True
+            self._jobs_touched += 1
+
+    def _restore_named_jobs(self) -> None:
+        """Replay every named job's journal under ``state_dir/<job>/``
+        (the default job's lives at the root).  Finished jobs are left
+        on disk but not resurrected."""
+        try:
+            names = sorted(os.listdir(self._state_base))
+        except OSError:
+            return
+        for name in names:
+            sub = os.path.join(self._state_base, name)
+            if (name == DEFAULT_JOB or not P.valid_job_id(name)
+                    or not os.path.isdir(sub)):
+                continue
+            job = JobState(self, name, self._default_world)
+            try:
+                job.attach_store(ckpt_mod.CheckpointStore(
+                    sub, rank=0, keep=3))
+            except OSError as e:
+                log("tracker: cannot open job %r journal under %s: %s",
+                    name, sub, e)
+                continue
+            if job.restore_journal() and not job.done:
+                with self._jobs_lock:
+                    self._jobs[name] = job
+                self._mark_restored(job)
+
     def _admit(self, name: str, world_hint: int) -> JobState:
         """Resolve a registration's job, creating a fresh incarnation
         when none is live.  A named job's world comes from its first
         registrant's hint; the default job (and hint-less registrants)
         use the tracker's configured world."""
+        fresh = False
         with self._jobs_lock:
             job = self._jobs.get(name)
             if job is not None and job.done:
@@ -760,6 +1211,7 @@ class Tracker:
                          and name != DEFAULT_JOB else self._default_world)
                 job = JobState(self, name, world)
                 self._jobs[name] = job
+                fresh = True
             if not job.touched:
                 job.touched = True
                 self._jobs_touched += 1
@@ -768,6 +1220,20 @@ class Tracker:
                     "job": job.name, "world": job.n_workers})
                 log("tracker: job %r admitted (world %d)", job.name,
                     job.n_workers)
+        if fresh and self._state_base:
+            # Journal store creation does disk I/O (makedirs, stale-tmp
+            # sweep): done OUTSIDE _jobs_lock so one tenant's slow
+            # storage cannot stall every co-tenant's command dispatch.
+            # Only the accept thread admits jobs, so nobody races the
+            # late attach; journal writes before it simply skip.
+            sub = (self._state_base if name == DEFAULT_JOB
+                   else os.path.join(self._state_base, name))
+            try:
+                job.attach_store(ckpt_mod.CheckpointStore(
+                    sub, rank=0, keep=3))
+            except OSError as e:
+                log("tracker: job %r journal unavailable (%s); "
+                    "running without HA for it", name, e)
         return job
 
     def _finish_job(self, job: JobState, phase: str) -> None:
@@ -785,6 +1251,7 @@ class Tracker:
                             "phase": phase, "job": job.name,
                             "world": job.n_workers})
         job.close()
+        job._journal()
         if self._service_done():
             self._wake_accept()
 
@@ -888,6 +1355,18 @@ class Tracker:
         except OSError:
             pass
 
+    @property
+    def epoch(self) -> int:
+        """Default job's membership epoch (bumped per completed rescale
+        round)."""
+        return self._default_job()._epoch
+
+    @property
+    def committed_version(self) -> int:
+        """Max checkpoint version any default-job worker reported via
+        cmd=epoch."""
+        return self._default_job()._committed_version
+
     def registered_at(self, task_id: str,
                       job: str | None = None) -> float | None:
         """Monotonic time of a task's latest start/recover registration
@@ -924,7 +1403,7 @@ class Tracker:
                 with job._pending_lock:
                     stalled = (
                         job._round_started is not None
-                        and 0 < len(job._pending) < job.n_workers
+                        and 0 < len(job._pending) < job._round_size()
                         and time.monotonic() - job._round_started
                         > self._watchdog_sec)
                     if not stalled:
@@ -935,7 +1414,7 @@ class Tracker:
                     job._round_started = time.monotonic()
                 log("tracker:%s rendezvous stalled (%d/%d registered); "
                     "notifying launcher", job._tag(), len(present),
-                    job.n_workers)
+                    job._round_size())
                 try:
                     self._on_stall(present, finished)
                 except Exception as e:  # noqa: BLE001 — must survive
@@ -1093,8 +1572,47 @@ class Tracker:
                 if task_id in job._rank_of:
                     job._shutdown_tasks.add(task_id)
                 if job.job_done():
+                    # _finish_job journals the terminal (done=True)
+                    # state — no point fsyncing an immediately
+                    # superseded snapshot first.
                     self._finish_job(job, "finished")
+                elif task_id in job._rank_of:
+                    job._journal()
             sock.close()
+            return
+        if cmd == P.CMD_EPOCH:
+            # Membership poll (one-shot): record the worker's committed
+            # version (journaled job progress), reply the current and
+            # pending epoch so commit boundaries learn about rescales.
+            version = P.recv_u32(sock)
+            job = self._job_get(job_name)
+            if job is None:
+                try:  # unknown/finished job: "no change"
+                    P.send_u32(sock, 0)
+                    P.send_u32(sock, 0)
+                    P.send_u32(sock, 0)
+                except OSError:
+                    pass
+                sock.close()
+                return
+            job.last_activity = time.monotonic()
+            bump = version > job._committed_version
+            if bump:
+                job._committed_version = version
+            with job._scale_lock:
+                pending = job._target_world is not None
+                target_epoch = job._epoch + (1 if pending else 0)
+                target_world = (job._target_world if pending
+                                else job.n_workers)
+            try:
+                P.send_u32(sock, job._epoch)
+                P.send_u32(sock, target_epoch)
+                P.send_u32(sock, target_world)
+            except OSError:
+                pass  # poller gone; it treats that as "no change"
+            sock.close()
+            if bump:
+                job._journal()
             return
         if cmd == P.CMD_HEARTBEAT:
             period_ms = P.recv_u32(sock)
@@ -1105,7 +1623,7 @@ class Tracker:
             job.last_activity = time.monotonic()
             job._hb_register(sock, task_id, period_ms)
             return  # the connection stays open for the beat stream
-        if cmd in (P.CMD_START, P.CMD_RECOVER):
+        if cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_RESCALE):
             host = P.recv_str(sock, max_len=P.MAX_HELLO_STR)
             port = P.recv_u32(sock)
             job = self._admit(job_name, world_hint)

@@ -338,9 +338,7 @@ def test_ckpt_dir_launch_option_is_served(out):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--min-workers", "A4b"), ("--max-workers", "A4b"),
-    ("--state-dir", "A4b"), ("--obs-dir", "A8"), ("--obs-port", "A8"),
-    ("--trace-dir", "A8")])
+    ("--obs-dir", "A8"), ("--obs-port", "A8"), ("--trace-dir", "A8")])
 def test_refused_flags(flag, item, capsys):
     from rabit_tpu_torch.tracker import launch_local
 
@@ -352,8 +350,6 @@ def test_refused_flags(flag, item, capsys):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("min_workers", "A4b"), ("max_workers", "A4b"),
-    ("state_dir", "A4b"),
     ("obs_dir", "A8"), ("obs_port", "A8"), ("trace_dir", "A8")])
 def test_refused_launch_options(key, item):
     """Each raises before a tracker or a worker starts."""

@@ -37,11 +37,13 @@ from rabit_tpu_torch.utils import RabitError
 from test_torch_pysocket_learn import KM_K
 from test_torch_robust import _app, _killable, _Killed, _results
 from test_torch_robust import per_thread  # noqa: F401 — fixture
+from torch_ref import ref_engine
 
 PKGS = ("torch", "jax")
 MODS = {"torch": tracker_mod, "jax": jtracker_mod}
-ENGINES = {"torch": PySocketEngine, "jax": JEngine}
-ROBUST = {"torch": _killable(PyRobustEngine), "jax": _killable(JRobust)}
+ENGINES = {"torch": PySocketEngine, "jax": ref_engine(JEngine)}
+ROBUST = {"torch": _killable(PyRobustEngine),
+          "jax": _killable(ref_engine(JRobust))}
 WAIT_SEC = 10.0
 JOIN_SEC = 30.0
 _REF_WORLD = {}      # the all-reference k-means world, run once
@@ -609,9 +611,11 @@ def test_verdicts_stay_in_their_job():
                 P.send_u32(hbs["jb"], b)
                 time.sleep(0.03)
             assert _wait(lambda: not _pending(t, "ja"))
-            P.send_u32(hbs["jb"], P.HEARTBEAT_BYE)
+            # the snapshot comes before the bye: a bye drained first
+            # would add a "shutdown" to jb's phases
             out = (sorted(set(dead)), _pending(t, "jb"),
                    _phases(t, "0", "ja"), _phases(t, "0", "jb"))
+            P.send_u32(hbs["jb"], P.HEARTBEAT_BYE)
             for s in regs + list(hbs.values()):
                 s.close()
             return out

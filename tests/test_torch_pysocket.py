@@ -27,13 +27,14 @@ from rabit_tpu_torch.engine.pysocket import (CHUNK_BYTES, AdmissionError,
 from rabit_tpu_torch.ops import ReduceOp
 from rabit_tpu_torch.tracker import protocol as P
 from rabit_tpu_torch.tracker.tracker import Tracker
+from torch_ref import ref_engine
 
 JOIN_SEC = 60.0
 SIZES = [0, 1, 2, 3, 5, 7, 13, 100, 1001, 4097]
 OVER = 20000            # elements: over the 64 KiB crossover in every dtype
 DTYPES = [np.int64, np.float32, np.float64]
 OPS = ["SUM", "MAX", "MIN", "PROD"]
-ENGINES = {"torch": PySocketEngine, "jax": JEngine}
+ENGINES = {"torch": PySocketEngine, "jax": ref_engine(JEngine)}
 TRACKERS = {"torch": Tracker, "jax": JTracker}
 OPCODES = {"torch": ReduceOp, "jax": JOp}
 

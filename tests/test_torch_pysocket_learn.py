@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import pytest
 
+from torch_ref import REF_ENV
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 3
 PROC_SEC = 120          # each rank process's time limit
@@ -231,6 +233,8 @@ def _launch(kind):
         t.start()
     env = {k: v for k, v in os.environ.items() if not k.startswith("RABIT_")}
     env.update(PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    if kind == "jax":
+        env.update(REF_ENV)
     procs = [subprocess.Popen(
         [sys.executable, __file__, kind, str(i)]
         + [str(t.port) for t in trackers],

@@ -49,6 +49,7 @@ from rabit_tpu_torch.ops import ReduceOp
 from rabit_tpu_torch.tracker.tracker import Tracker
 from test_torch_pysocket_learn import (GB_DEPTH, GB_NBIN, KM_K, gbdt_shard,
                                        kmeans_shard)
+from torch_ref import ref_engine
 
 CKPT, LOAD = SEQ_CHECKPOINT, SEQ_LOAD_CHECK
 JOIN_SEC = 30.0
@@ -77,7 +78,8 @@ def _killable(base):
     return Killable
 
 
-ENGINES = {"torch": _killable(PyRobustEngine), "jax": _killable(JRobust)}
+ENGINES = {"torch": _killable(PyRobustEngine),
+           "jax": _killable(ref_engine(JRobust))}
 
 
 @pytest.fixture(autouse=True)
@@ -635,9 +637,8 @@ def test_merge_word_matches_reference():
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("key,value,item", [
-    ("rabit_elastic", "1", "A4b"),
-    ("rabit_elastic", "true", "A4b"), ("rabit_adapt", "yes", "A8"),
-    ("rabit_wire_codec", "int8", "A8")])
+    ("rabit_adapt", "1", "A8"), ("rabit_adapt", "true", "A8"),
+    ("rabit_adapt", "yes", "A8"), ("rabit_wire_codec", "int8", "A8")])
 def test_unported_knobs_raise(key, value, item):
     """Each knob outside the slice raises before any connection is tried
     (the tracker port is closed)."""

@@ -392,8 +392,7 @@ def test_stray_client(pkg, case):
         finish(tr, pkg)
 
 
-@pytest.mark.parametrize("cmd", ["rescale", "epoch", "formbar", "jaxsvc",
-                                 "bogus"])
+@pytest.mark.parametrize("cmd", ["formbar", "jaxsvc", "bogus"])
 def test_commands_outside_the_slice_are_refused(cmd, capsys):
     """Commands the port's tracker does not serve get the reference's
     treatment of an unknown command: logged, closed, no reply, and no
