@@ -228,6 +228,30 @@ Phases, each raising on failure (the script then exits non-zero):
     every ``rows_for_rank`` and every re-staging time, and each job's
     wall.
 
+23. (after 22) the device-plane engine at world 3: the port's
+    ``launch_local.launch(3, ...)`` (this script with ``--phase23-rank``)
+    with ``rabit_engine="xla"`` over ``pyrobust`` and
+    ``heartbeat_sec=0.5``; the three rank processes share the card, so
+    the group must be gloo on CUDA tensors.  (a) ``kmeans.run`` on phase
+    17's dense16 thirds, 4 iterations, rank 1 SIGKILLing itself entering
+    iteration 2's device allreduce (``max_restarts=1``): iteration 1 on
+    the device plane everywhere, the survivors degrade to the host
+    engine (one host op each), the relaunch comes up degraded,
+    checkpoint 2 re-forms the plane (``device_epoch`` 1 on all three,
+    the shard re-staged once), iterations 3-4 on the device plane again;
+    every stats allreduce counts 4,194,304 rows, iterations 1-3 phase
+    17's counts, centroids within 1e-3 of the plain loop (run here
+    meanwhile) and, at version 3, within the float32 sum bar of phase
+    17's; B1 launches by life [4], [2, 3], [4].  (b) ``boosting.train``
+    on phase 17's thirds, 2 rounds, float32 kernel, no fault: each
+    level's histograms in one device allreduce, the top three levels of
+    both trees phase 17's, log-loss within 1e-4.  (c) The engine's NCCL
+    ``new_group`` at world 1 on an in-process store, one allreduce of
+    the (64, 257) stats (the only NCCL one card can run).  It prints the
+    device allreduce ms for the stats and the largest level beside phase
+    17's host-plane times, death -> degrade, relaunch start -> degraded
+    registration, the reform ms and the phase's wall.
+
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
 (``{"kernels": [...]}``), and ``{"ok": true, "device": {...}}``.
@@ -2318,7 +2342,9 @@ def world3_phase(torch, km, kk):
         ring_stats_ms=[[op[1] * 1e3 for op in k["ops"]
                         if op[0] == stats_bytes] for k in km3],
         kmeans_walls=[k["split"]["wall"] for k in km3],
-        f32_walls=[g["split"]["wall"] for g in gb3["f32 kernel"]])
+        f32_walls=[g["split"]["wall"] for g in gb3["f32 kernel"]],
+        # the largest level histogram's allreduce, by rank (ms)
+        f32_level_ms=[max(g["ops"])[1] * 1e3 for g in gb3["f32 kernel"]])
 
 
 def phase18_rank(task, ports):
@@ -4275,6 +4301,446 @@ def phase22(torch, km):
     return dict(kmeans_stats_dense=result)
 
 
+# ------------------------------------------- the device plane at world 3
+P23_ITERS = 4                      # k-means iterations: versions 1..4
+P23_HEARTBEAT_SEC = 0.5
+P23_KILL_VERSION = 1               # rank 1 dies entering iteration 2's op
+P23_PATHS = {0: [["device", "host", "device", "device"]],
+             1: [["device"], ["host", "device", "device"]],
+             2: [["device", "host", "device", "device"]]}
+# B1 launches by life: rank 1's first life computed iterations 1 and 2's
+# stats (the kill comes at the allreduce, after B1), its second
+# iterations 2-4
+P23_B1_LIVES = {0: [4], 1: [2, 3], 2: [4]}
+P23_STATS_BYTES = K * 257 * 4      # 65,792 B
+P23_LEVEL_BYTES = 32 * GBDT_FEATURES * (GBDT_NBIN + 1) * 2 * 4  # 4,210,688 B
+P23_STEADY_REPS = 20               # back-to-back ops a size and device
+
+
+def device_plane_rank(which, out_dir):
+    """One rank process of phase 23 (``chip_smoke.py --phase23-rank
+    WHICH DIR``), started, and restarted after its SIGKILL, by the
+    port's ``launch_local.launch``: ``rabit_engine="xla"`` over
+    ``pyrobust``, phase 17's job on its third of phase 17's rows —
+    ``kmeans.run`` on the dense16 tier (B1), ``P23_ITERS`` iterations,
+    or ``boosting.train`` with the float32 kernel (B3).  Each tensor
+    allreduce is timed between two synchronizes and recorded with its
+    path (device plane or degraded host), each re-formation with its
+    time; k-means' rank 1 SIGKILLs itself in its first life entering
+    the device allreduce at version ``P23_KILL_VERSION``.  After
+    k-means, each rank times ``P23_STEADY_REPS`` allreduces back to back
+    at the stats' and the largest level's sizes, on CUDA and on CPU
+    tensors.  A life writes its record to DIR (also just before the
+    kill)."""
+    marks = {}
+    import torch
+
+    marks["torch"] = since_start()
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase-23 ranks run on the card")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    marks["cuda"] = since_start()
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import boosting as gb
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import SUM
+    from rabit_tpu_torch.ops import histogram_kernel as hk
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rabit_tpu_torch.init(rabit_engine="xla", rabit_inner_engine="pyrobust",
+                         rabit_timeout_sec=W3_TIMEOUT)
+    marks["init"] = since_start()
+    eng = engine_mod.get_engine()
+    rank = eng.rank
+    relaunch = int(os.environ["RABIT_RELAUNCH"])
+    rec = dict(which=which, rank=rank, relaunch=relaunch,
+               engine=type(eng).__name__, degraded_at_init=eng._degraded,
+               plane=engine_mod.is_device_plane(), marks=marks, ops=[],
+               reforms=[], tiers=[], centroids={}, done=False,
+               t0=_STARTED[0])
+    path = os.path.join(out_dir, f"{which}.{rank}.{relaunch}.json")
+
+    def dump():
+        rec["launches"] = dict(kk.LAUNCHES, **hk.LAUNCHES)
+        rec["stats"] = dict(eng.path_stats)
+        rec["epoch"] = eng.device_epoch
+        with open(path, "w") as f:
+            json.dump(rec, f)
+
+    real = {name: getattr(eng, name) for name in (
+        "allreduce", "_host_degrade", "_maybe_reform")}
+
+    def allreduce(buf, op, prepare_fun=None):
+        if not isinstance(buf, torch.Tensor):
+            return real["allreduce"](buf, op, prepare_fun)
+        version = eng.version_number
+        if (which == "kmeans" and rank == 1 and relaunch == 0
+                and version == P23_KILL_VERSION):
+            marks["killed"] = since_start()
+            dump()
+            os.kill(os.getpid(), signal.SIGKILL)
+        before = eng.path_stats["device_ops"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real["allreduce"](buf, op, prepare_fun)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        op_rec = dict(version=version,
+                      bytes=buf.numel() * buf.element_size(), ms=dt * 1e3,
+                      on=out.device.type,
+                      path=("device" if eng.path_stats["device_ops"] > before
+                            else "host"))
+        if which == "kmeans":
+            op_rec["counts"] = out[:, -1].tolist()
+        rec["ops"].append(op_rec)
+        return out
+
+    def host_degrade(*a, **k):
+        marks.setdefault("degrade", since_start())
+        return real["_host_degrade"](*a, **k)
+
+    def maybe_reform():
+        epoch, t = eng.device_epoch, time.perf_counter()
+        real["_maybe_reform"]()
+        if eng.device_epoch != epoch:
+            rec["reforms"].append(dict(
+                version=eng.version_number, epoch=eng.device_epoch,
+                ms=(time.perf_counter() - t) * 1e3,
+                degraded=eng._degraded, backend=eng.backend))
+    eng.allreduce = allreduce
+    eng._host_degrade = host_degrade
+    eng._maybe_reform = maybe_reform
+    if which == "kmeans":
+        data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                               picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+        shard = _shard_rows(data, local_data_slice(rank, W3_RANKS,
+                                                   MAIN_ROWS))
+        del data
+        marks["data"] = since_start()
+        real_prepare, real_ckpt = km.prepare_shard, rabit_tpu_torch.checkpoint
+
+        def dense16(*a, **k):
+            staged = real_prepare(*a, budget=0, **k)   # as phase 17
+            torch.cuda.synchronize()
+            rec["tiers"].append(staged[0])
+            marks.setdefault("staged", since_start())
+            return staged
+
+        def checkpoint(model, *a, **k):
+            if eng.version_number + 1 in (W3_KM_ITERS, P23_ITERS):
+                rec["centroids"][eng.version_number + 1] = \
+                    model.centroids.tolist()
+            return real_ckpt(model, *a, **k)
+        km.prepare_shard = dense16
+        rabit_tpu_torch.checkpoint = checkpoint
+        km.run(shard, K, P23_ITERS, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        # the steady cost of one op, back to back (the first op of each
+        # size absorbs the ranks' skew), on CUDA and on CPU tensors
+        rec["steady"] = {}
+        for nbytes in (P23_STATS_BYTES, P23_LEVEL_BYTES):
+            for dev in ("cuda", "cpu"):
+                x = torch.ones(nbytes // 4, device=dev)
+                real["allreduce"](x, SUM)
+                times = []
+                for _ in range(P23_STEADY_REPS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    real["allreduce"](x, SUM)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+                rec["steady"][f"{dev} {nbytes}"] = times
+    else:
+        x_all, y_all = gbdt_data(GBDT_ROWS, GBDT_FEATURES, seed=11)
+        s = local_data_slice(rank, W3_RANKS, GBDT_ROWS)
+        x, y = np.ascontiguousarray(x_all[s]), np.ascontiguousarray(y_all[s])
+        del x_all, y_all
+        marks["data"] = since_start()
+        bins, real_apply = [], gb.apply_cuts
+
+        def keep_bins(*a, **k):
+            bins.append(real_apply(*a, **k))
+            marks["staged"] = since_start()
+            return bins[-1]
+        gb.apply_cuts = keep_bins
+        model = gb.train(x, y, num_round=W3_GB_ROUNDS, max_depth=GBDT_DEPTH,
+                         nbin=GBDT_NBIN, **W3_GB_KW["f32 kernel"])
+        torch.cuda.synchronize()
+        losses, _acc, _pred = round_losses(model, bins[0], y)
+        chunk = hk.max_channels(GBDT_NBIN + 1, GBDT_FEATURES) // 2
+        rec.update(rows=len(y), loss_sums=[v * len(y) for v in losses],
+                   trees=[[dataclasses.astuple(n) for n in t]
+                          for t in model.trees],
+                   level_chunks=[level_chunk_list(t, GBDT_DEPTH, chunk)
+                                 for t in model.trees])
+    marks["end"] = since_start()
+    rec["done"] = True
+    dump()
+    rabit_tpu_torch.finalize()
+    return 0
+
+
+def _p23_lives(out_dir, which):
+    lives = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(which + "."):
+            with open(os.path.join(out_dir, name)) as f:
+                r = json.load(f)
+            lives.setdefault(r["rank"], []).append(r)
+    for recs in lives.values():
+        recs.sort(key=lambda r: r["relaunch"])
+    return lives
+
+
+def _p23_kmeans(lives, w3, oracle):
+    """Phase 23 (a)'s checks; returns the figures it prints."""
+    if sorted(lives) != [0, 1, 2] or [len(lives[r]) for r in range(3)] != \
+            [1, 2, 1]:
+        raise AssertionError(f"phase 23 k-means: lives "
+                             f"{ {r: len(v) for r, v in lives.items()} }")
+    finals = []
+    for rank, recs in sorted(lives.items()):
+        for life, r in enumerate(recs):
+            tag = f"phase 23 k-means rank {rank} life {life + 1}"
+            paths = [o["path"] for o in r["ops"]]
+            if paths != P23_PATHS[rank][life]:
+                raise AssertionError(f"{tag}: paths {paths}")
+            if any(o["bytes"] != P23_STATS_BYTES or o["on"] != "cuda"
+                   for o in r["ops"]):
+                raise AssertionError(f"{tag}: ops {r['ops']}")
+            for o in r["ops"]:
+                it = o["version"]
+                if sum(o["counts"]) != MAIN_ROWS:
+                    raise AssertionError(f"{tag}: iteration {it + 1} "
+                                         f"counted {sum(o['counts'])} rows")
+                if it < W3_KM_ITERS and o["counts"] != \
+                        w3["oracle_counts"][it]:
+                    raise AssertionError(f"{tag}: iteration {it + 1}'s "
+                                         "counts differ from phase 17's")
+            b1 = r["launches"]["kmeans_stats_dense"]
+            if b1 != P23_B1_LIVES[rank][life] or \
+                    r["launches"]["kmeans_stats_ell"]:
+                raise AssertionError(f"{tag}: launches {r['launches']}")
+            if not r["plane"]:
+                raise AssertionError(f"{tag}: is_device_plane() was False")
+            if r["done"]:
+                finals.append(r)
+                if r["degraded_at_init"] != (life > 0):
+                    raise AssertionError(f"{tag}: degraded at init "
+                                         f"{r['degraded_at_init']}")
+                if r["stats"]["backend"] != "gloo" or r["epoch"] != 1 or \
+                        r["tiers"] != ["dense16", "dense16"]:
+                    raise AssertionError(
+                        f"{tag}: backend {r['stats']['backend']}, epoch "
+                        f"{r['epoch']}, tiers {r['tiers']} (the ranks share "
+                        "the card: gloo; one reform; staged, re-staged once)")
+                if [(f["version"], f["epoch"], f["degraded"],
+                     f["backend"]) for f in r["reforms"]] != \
+                        [(2, 1, False, "gloo")]:
+                    raise AssertionError(f"{tag}: reforms {r['reforms']}")
+                if r["stats"]["host_ops"] != 1:
+                    raise AssertionError(f"{tag}: {r['stats']}")
+    cents = [np.asarray(r["centroids"][str(P23_ITERS)], np.float32)
+             for r in finals]
+    if any(not np.array_equal(c, cents[0]) for c in cents):
+        raise AssertionError("phase 23 k-means: final centroids differ "
+                             "between the ranks")
+    err = float(np.abs(cents[0] - oracle).max())
+    if not (np.isfinite(cents[0]).all() and err <= CENT_ATOL):
+        raise AssertionError(f"phase 23 k-means: centroids {err} off the "
+                             f"plain loop (bar {CENT_ATOL})")
+    v3 = np.asarray(finals[0]["centroids"][str(W3_KM_ITERS)], np.float32)
+    p17 = np.asarray(w3["centroids"], np.float32)
+    if not np.allclose(v3, p17, rtol=SUM_RTOL, atol=SUM_ATOL):
+        raise AssertionError(f"phase 23 k-means: version-{W3_KM_ITERS} "
+                             f"centroids off phase 17's host-plane run by "
+                             f"{float(np.abs(v3 - p17).max())}")
+    return err, float(np.abs(v3 - p17).max())
+
+
+def phase23(torch, w3, km):
+    """Phase 23: the device-plane engine at world 3.  The port's
+    ``launch_local.launch(3, ...)`` with ``rabit_engine="xla"`` over
+    ``pyrobust`` and ``heartbeat_sec=0.5`` (see ``device_plane_rank``);
+    the three rank processes share the card, so the backend must be
+    gloo on CUDA tensors.  (a) ``kmeans.run`` on phase 17's dense16
+    thirds, ``P23_ITERS`` iterations, rank 1 SIGKILLed entering
+    iteration 2's device allreduce, ``max_restarts=1``: survivors
+    degrade, the relaunch comes up degraded, checkpoint 2 re-forms the
+    plane (``device_epoch`` 1 on all three), k-means re-stages once and
+    the later iterations ride the device plane; counts of every
+    iteration sum to the rows, iterations 1-3 equal phase 17's;
+    centroids within 1e-3 of the plain loop (run here meanwhile) and,
+    at version 3, within the float32 sum bar of phase 17's.  (b)
+    ``boosting.train`` on phase 17's thirds, 2 rounds, float32 kernel,
+    no fault: one device allreduce a level, top three levels as phase
+    17's, log-loss within 1e-4.  (c) The engine's NCCL `new_group` at
+    world 1 on an in-process store, one allreduce of the (64, 257)
+    stats: the only NCCL code one card can run.  Returns B1's and B3's
+    launches."""
+    import datetime
+    import threading
+
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.engine import xla
+    from rabit_tpu_torch.learn.boosting import TreeNode
+
+    t0 = time.perf_counter()
+    log(f"[23] the device-plane engine (rabit_engine=xla over pyrobust) "
+        f"at world {W3_RANKS} on one card: k-means dense16 {MAIN_ROWS} x "
+        f"256 k={K}, {P23_ITERS} iterations, rank 1 SIGKILLed entering "
+        f"iteration 2's device allreduce; boosting.train {GBDT_ROWS} x "
+        f"{GBDT_FEATURES}, {W3_GB_ROUNDS} rounds, float32 kernel | "
+        f"nvidia-smi: {smi_line()}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = {}
+        th = threading.Thread(target=lambda: launched.update(
+            out=_launch_ranks("23", "kmeans", tmp, max_restarts=1,
+                              heartbeat_sec=P23_HEARTBEAT_SEC)),
+            daemon=True)
+        th.start()
+        t = time.perf_counter()
+        oracle = elastic_oracle(torch, km,
+                                world3_picks(MAIN_ROWS, K, W3_RANKS))
+        t_oracle = time.perf_counter() - t
+        th.join(W3_TIMEOUT + 90)
+        if "out" not in launched or launched["out"][0] != 0:
+            raise AssertionError(f"phase 23 k-means: the launch failed "
+                                 f"({launched.get('out')})")
+        km_secs = launched["out"][1]
+        lives = _p23_lives(tmp, "kmeans")
+        err, err17 = _p23_kmeans(lives, w3, oracle)
+        dead = lives[1][0]
+        death = dead["t0"] + dead["marks"]["killed"]
+        degrade = [lives[r][0]["t0"] + lives[r][0]["marks"]["degrade"]
+                   - death for r in (0, 2)]
+        relaunch = lives[1][1]
+        dev_ms = [o["ms"] for r in (0, 1, 2) for o in lives[r][-1]["ops"]
+                  if o["path"] == "device"]
+        host_ms = [o["ms"] for r in (0, 1, 2) for o in lives[r][-1]["ops"]
+                   if o["path"] == "host"]
+        ring17 = [t for rank_ms in w3["ring_stats_ms"] for t in rank_ms]
+        reform_ms = [lives[r][-1]["reforms"][0]["ms"] for r in (0, 1, 2)]
+        log(f"    (a) k-means: launcher returned 0 in {km_secs:.1f} s (the "
+            f"plain loop meanwhile {t_oracle:.1f} s); backend gloo on CUDA "
+            f"tensors (the ranks share the card); iteration 1 on the "
+            f"device plane on every rank, the survivors degraded at "
+            f"iteration 2, the relaunch came up degraded, checkpoint 2 "
+            f"re-formed the plane (device_epoch 1 on all three, k-means "
+            f"re-staged once), iterations 3-4 on the device plane; every "
+            f"stats allreduce counted {MAIN_ROWS} rows, iterations 1-3 "
+            f"phase 17's counts; centroids within {err:.3g} of the plain "
+            f"loop, version 3 within {err17:.3g} of phase 17's; B1 by "
+            f"rank and life "
+            f"{ {r: [x['launches']['kmeans_stats_dense'] for x in v] for r, v in lives.items()} }")
+        log(f"    (a) the ({K}, 257) float32 stats ({P23_STATS_BYTES} B): "
+            f"device allreduce (gloo on CUDA tensors, synchronize to "
+            f"synchronize) median {statistics.median(dev_ms):.3f} ms over "
+            f"{len(dev_ms)} ops {[round(t, 3) for t in dev_ms]}, degraded "
+            f"host op {[round(t, 3) for t in host_ms]} ms; phase 17's "
+            f"host-plane allreduce median {statistics.median(ring17):.3f} ms "
+            f"(PySocketEngine, its copy to the host apart)")
+        steady = {key: statistics.median(
+            t for r in (0, 1, 2) for t in lives[r][-1]["steady"][key])
+            for key in lives[0][0]["steady"]}
+        log(f"    (a) back to back, {P23_STEADY_REPS} ops a size after "
+            f"k-means (median over the ranks): gloo on CUDA tensors "
+            f"{steady[f'cuda {P23_STATS_BYTES}']:.3f} ms ({P23_STATS_BYTES}"
+            f" B) and {steady[f'cuda {P23_LEVEL_BYTES}']:.3f} ms "
+            f"({P23_LEVEL_BYTES} B); on CPU tensors "
+            f"{steady[f'cpu {P23_STATS_BYTES}']:.3f} ms and "
+            f"{steady[f'cpu {P23_LEVEL_BYTES}']:.3f} ms")
+        log(f"    (a) rank 1 SIGKILLed -> survivors degraded +"
+            f"{degrade[0]:.3f} s / +{degrade[1]:.3f} s; relaunch start -> "
+            f"degraded registration (engine init returned) "
+            f"{relaunch['marks']['init']:.3f} s (torch {relaunch['marks']['torch']:.3f}"
+            f" s, CUDA {relaunch['marks']['cuda']:.3f} s of it); reform at "
+            f"checkpoint 2 by rank {[round(t, 3) for t in reform_ms]} ms")
+        out["kmeans_stats_dense"] = {
+            str(r): [x["launches"]["kmeans_stats_dense"] for x in v]
+            for r, v in lives.items()}
+
+        # (b) GBDT, no fault
+        code, gb_secs = _launch_ranks("23", "gbdt", tmp,
+                                      heartbeat_sec=P23_HEARTBEAT_SEC)
+        if code != 0:
+            raise AssertionError(f"phase 23 gbdt: the launcher returned "
+                                 f"{code}")
+        glives = _p23_lives(tmp, "gbdt")
+        ranks = [glives[r][0] for r in range(W3_RANKS)]
+        want_top = [top_levels([TreeNode(*n) for n in t], 3)
+                    for t in w3["f32_trees"]]
+        for g in ranks:
+            tag = f"phase 23 gbdt rank {g['rank']}"
+            levels = sum(sum(1 for c in lc if c) for lc in g["level_chunks"])
+            paths = [o["path"] for o in g["ops"]]
+            if paths != ["device"] * levels or g["stats"]["host_ops"] or \
+                    g["stats"]["backend"] != "gloo":
+                raise AssertionError(f"{tag}: {len(paths)} tensor allreduces "
+                                     f"{set(paths)} for {levels} levels, "
+                                     f"{g['stats']}")
+            got = g["launches"]["gbdt_hist"]
+            if got != sum(map(sum, g["level_chunks"])):
+                raise AssertionError(f"{tag}: {got} B3 launches for level "
+                                     f"chunks {g['level_chunks']}")
+            top = [top_levels([TreeNode(*n) for n in t], 3)
+                   for t in g["trees"]]
+            if top != want_top:
+                raise AssertionError(f"{tag}: top levels {top} vs phase "
+                                     f"17's {want_top}")
+        n = sum(g["rows"] for g in ranks)
+        losses = [sum(g["loss_sums"][i] for g in ranks) / n
+                  for i in range(W3_GB_ROUNDS)]
+        rel = max(abs(a - b) / b for a, b in zip(losses, w3["f32_losses"]))
+        if rel > 1e-4:
+            raise AssertionError(f"phase 23 gbdt: log-loss {losses} vs phase "
+                                 f"17's {w3['f32_losses']}")
+        big = [[o["ms"] for o in g["ops"] if o["bytes"] == P23_LEVEL_BYTES]
+               for g in ranks]
+        log(f"    (b) GBDT: launcher returned 0 in {gb_secs:.1f} s; one "
+            f"device allreduce a level on every rank, top three levels of "
+            f"both trees phase 17's, log-loss by round "
+            f"{[round(v, 6) for v in losses]} within {rel:.3g} relative; "
+            f"B3 by rank {[g['launches']['gbdt_hist'] for g in ranks]}; "
+            f"the largest level ({P23_LEVEL_BYTES} B) device allreduce by "
+            f"rank {[[round(t, 3) for t in b] for b in big]} ms, phase 17's "
+            f"host-plane one {[round(t, 3) for t in w3['f32_level_ms']]} ms")
+        out["gbdt_hist"] = [g["launches"]["gbdt_hist"] for g in ranks]
+
+    # (c) NCCL at world 1 on the card
+    if xla.backend_for([xla.device_identity()]) != "nccl":
+        raise AssertionError("phase 23 nccl: a card of its own is not nccl")
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                          timeout=datetime.timedelta(seconds=60),
+                          wait_for_workers=False)
+    group = xla.new_group(dist.PrefixStore("p23/", store), 0, 1, "nccl",
+                          datetime.timedelta(seconds=60))
+    stats = torch.randn(K, 257, device="cuda")
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.SUM
+    x = stats.clone()
+    group.allreduce([x], opts).wait()
+    torch.cuda.synchronize()
+    if not torch.equal(x, stats):
+        raise AssertionError("phase 23 nccl: world-1 allreduce changed the "
+                             "stats")
+    nccl_ms = time_ms(torch, lambda: group.allreduce([x], opts).wait())
+    group.abort()
+    del group, store
+    log(f"    (c) NCCL group from the engine's new_group at world 1: one "
+        f"({K}, 257) allreduce returned its input; {nccl_ms:.4f} ms a "
+        f"call (median of 5); multi-card NCCL stays unverified here")
+    log(f"    phase 23 wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4765,6 +5231,18 @@ def main() -> int:
         if line["name"] in p22:
             line["phase22_launches_by_task_and_world"] = p22[line["name"]]
     log(f"    phase 22 took {time.perf_counter() - t0:.1f} s")
+
+    # 23. the device-plane engine: k-means through a death and GBDT at
+    # world 3 reducing CUDA tensors, and the NCCL new_group at world 1
+    t0 = time.perf_counter()
+    p23 = phase23(torch, w3, km)
+    for line in lines:
+        if line["name"] == "kmeans_stats_dense":
+            line["phase23_launches_by_rank_and_life"] = \
+                p23["kmeans_stats_dense"]
+        if line["name"] == "gbdt_hist":
+            line["phase23_launches_by_rank"] = p23["gbdt_hist"]
+    log(f"    phase 23 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -4783,6 +5261,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"],
                          ["--phase21-rank"]):
         sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase23-rank"]:
+        sys.exit(device_plane_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-rank"]:
         sys.exit(elastic_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-grow"]:

@@ -1,8 +1,10 @@
 """Engine layer (counterpart of :mod:`rabit_tpu.engine`).
 
 Ported so far: ``empty`` (world of one), ``pysocket`` (pure-Python
-TCP, non-fault-tolerant) and ``pyrobust`` (the same links with
-checkpoint/replay recovery).  Every other engine name raises
+TCP, non-fault-tolerant), ``pyrobust`` (the same links with
+checkpoint/replay recovery) and ``xla`` (tensors on a
+``torch.distributed`` device plane, a host engine for the control
+plane; :mod:`rabit_tpu_torch.engine.xla`).  Every other engine name raises
 :class:`NotImplementedError` rather than running on a different engine
 than the one asked for.  With no engine named, a tracker URI selects
 ``pyrobust``, as the reference does when its native library is absent,
@@ -37,6 +39,10 @@ def _make_engine(name: str) -> Engine:
         from rabit_tpu_torch.engine.robust import PyRobustEngine
 
         return PyRobustEngine()
+    if name == "xla":
+        from rabit_tpu_torch.engine.xla import XLAEngine
+
+        return XLAEngine()
     raise _not_ported(name)
 
 
@@ -72,9 +78,14 @@ def initialized() -> bool:
 
 
 def is_device_plane() -> bool:
-    """True when the active engine reduces tensors over a device data
-    plane.  No such engine is ported yet, so always False."""
-    return False
+    """True when the active engine reduces tensors over the device data
+    plane (the xla engine in a multi-process world): apps keep such
+    payloads on their device instead of converting to numpy."""
+    if _engine is None or not _engine.is_distributed():
+        return False
+    from rabit_tpu_torch.engine.xla import XLAEngine
+
+    return isinstance(_engine, XLAEngine)
 
 
 def finalize() -> None:

@@ -27,8 +27,8 @@ reference's own):
   to the rest.
 
 Payloads are numpy arrays, as the reference engine moves numpy; a
-``torch.Tensor`` raises before any byte moves (a device data plane is
-ROADMAP A5).  Left out until their ROADMAP items, each refused with
+``torch.Tensor`` raises before any byte moves (tensors belong to the
+device-plane engine, ``rabit_engine="xla"``).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
 shared-memory links, the tuning cache and the ``auto``, ``swing`` and
@@ -1063,7 +1063,7 @@ class PySocketEngine(Engine):
             raise TypeError(
                 f"{what}: the pysocket engine reduces numpy arrays; got a "
                 f"torch.Tensor on {buf.device} (move it with .cpu().numpy() "
-                f"or use a device-plane engine, ROADMAP A5)")
+                f"or use the device-plane engine, rabit_engine=\"xla\")")
 
     def allreduce(
         self,

@@ -162,7 +162,14 @@ def train(values: np.ndarray, labels: np.ndarray, num_round: int = 10,
     # round
     bins_t = torch.from_numpy(np.ascontiguousarray(bins.T)).to(dev)
 
+    epoch = rabit_tpu_torch.device_epoch()
     for round_idx in range(version, num_round):
+        if rabit_tpu_torch.device_epoch() != epoch:
+            # the device plane was re-formed after a failure: re-upload
+            # the resident bins (a tensor outlives its group, so this is
+            # the reference's re-upload kept for parity)
+            epoch = rabit_tpu_torch.device_epoch()
+            bins_t = torch.from_numpy(np.ascontiguousarray(bins.T)).to(dev)
         grad, hess = _grad_hess(margin, labels, model.loss)
         if subsample < 1.0:
             # zeroed grad/hess: the row adds nothing anywhere this round

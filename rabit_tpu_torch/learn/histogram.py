@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 import rabit_tpu_torch
+from rabit_tpu_torch import engine as _engine_mod
 from rabit_tpu_torch.ops import SUM
 from rabit_tpu_torch.ops import histogram_kernel as hk
 
@@ -179,10 +180,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def build_level_allreduce(bins, grad, hess, node_of_row, node_ids,
                           nbin: int, **kw) -> np.ndarray:
     """Global per-node level histograms: one local pass and ONE
-    Allreduce<Sum> for the whole level, on the host (no engine of the
-    port has a device data plane yet)."""
-    local = _host(build_level_local(bins, grad, hess, node_of_row,
-                                    node_ids, nbin, **kw))
+    Allreduce<Sum> for the whole level.  Under the xla engine the
+    level's tensor stays on its device and rides the device plane, as
+    the k-means stats do; host engines take the fault-tolerant numpy
+    path."""
+    local = build_level_local(bins, grad, hess, node_of_row, node_ids,
+                              nbin, **kw)
+    if _engine_mod.is_device_plane():
+        out = rabit_tpu_torch.allreduce(local.reshape(-1), SUM)
+        return out.reshape(local.shape).cpu().numpy()
+    local = _host(local)
     return rabit_tpu_torch.allreduce(local.reshape(-1), SUM).reshape(
         local.shape)
 

@@ -174,26 +174,24 @@ CMD_START = "start"
 CMD_RECOVER = "recover"
 CMD_PRINT = "print"
 CMD_SHUTDOWN = "shutdown"
-# "jaxsvc": rank 0 of the XLA engine asks the tracker to host a fresh
-# JAX coordination service for the job's world size.  Reply: u32 port
-# (0 = tracker cannot host, e.g. no jaxlib).  Hosting the service in
-# the long-lived tracker decouples the device-plane coordinator from
-# worker lifetimes: ANY worker's death — including rank 0's — is then a
-# recoverable peer failure instead of a fatal loss of the coordination
-# service.  Previous epochs' services are retained until the tracker
-# closes (a degraded member may still be attached to one).
+# "jaxsvc": a device-plane engine asks the tracker for a store for the
+# job's world: the key (sent as the task id) "init" is create-or-get,
+# "" a fresh one.  Reply: u32 port (0 = the tracker cannot host one).
+# The port's tracker hosts a torch.distributed TCPStore there, the
+# reference a JAX coordination service: the same bytes name different
+# services.  Hosting it in the long-lived tracker decouples the device
+# plane's rendezvous from worker lifetimes: ANY worker's death — rank
+# 0's included — is then a recoverable peer failure.  Previous epochs'
+# stores are kept until the tracker closes.
 CMD_JAXSVC = "jaxsvc"
-# "formbar": the formation barrier.  Each XLA-engine worker posts this
-# as its LAST act before the blocking jaxlib group registration; the
-# tracker replies u32 1 (proceed) only once every worker of the job has
-# posted, and 0 (abort — start degraded) when any task re-registers as
-# a mid-job relaunch or the barrier times out.  Needed because a client
-# stuck in a doomed registration barrier cannot escape: when a
-# co-registrant dies the coordination service's error push fatally
-# terminates the blocked clients (jaxlib client.h:80), and the client's
-# own init_timeout is routed through the same fatal path rather than
-# raising.  So liveness is decided on the control plane BEFORE anyone
-# blocks in the device-plane registration.
+# "formbar": the formation barrier.  Each device-plane worker posts this
+# as its LAST act before forming its group; the tracker replies u32 1
+# (proceed) only once every worker of the job has posted, and 0 (abort
+# — start degraded) when any task re-registers as a mid-job relaunch,
+# the job closes or the barrier times out.  A worker that formed with a
+# dead co-registrant would wait out the formation timeout (the
+# reference's jaxlib client is even terminated), so liveness is decided
+# on the control plane BEFORE anyone blocks in the group's formation.
 CMD_FORMBAR = "formbar"
 # "heartbeat": the persistent liveness channel.  A worker opens ONE of
 # these right after its first rendezvous, sends its period (u32 ms),

@@ -51,15 +51,20 @@ As in the reference:
   blob), so a tracker restarted on the same port — port or reference —
   replays it and the workers' retries bridge the gap.
 
-Not ported yet, each with its ROADMAP item: the formation barrier
-(``formbar``) and the XLA coordinator service (``jaxsvc``, A5); obs
-telemetry (a heartbeat channel's obs frames count as beats and their
-payload is dropped; beats are never echoed), the adaptive controller,
-admission limits, HTTP and the CLI (A8).  ``formbar`` and ``jaxsvc``
-get the reference's treatment of an unknown command: the tracker logs
-it and closes the connection.  ``sched`` is "" and ``demoted`` is
-empty in every reply, and the journal holds no formation-barrier
-fields.
+* The **device plane's two commands** serve
+  :mod:`rabit_tpu_torch.engine.xla`: ``formbar``, the formation barrier
+  (u32 1 once every worker of the job posted, 0 once the barrier is
+  aborted by a re-registration, the job's close or its timeout), and
+  ``jaxsvc``, which hosts a ``torch.distributed.TCPStore`` for the
+  job's world and replies its port (0 when none can be hosted).  The
+  reply bytes are the reference's; what the port names differs on
+  purpose: the reference hosts a JAX coordination service there.
+
+Not ported yet, each with its ROADMAP item: obs telemetry (a heartbeat
+channel's obs frames count as beats and their payload is dropped;
+beats are never echoed), the adaptive controller, admission limits,
+HTTP and the CLI (A8).  ``sched`` is "" and ``demoted`` is empty in
+every reply.
 """
 from __future__ import annotations
 
@@ -193,6 +198,19 @@ class JobState:
         # round fill, the heartbeat monitor on a target change).
         self._round_lock = threading.Lock()
         self._committed_version = 0          # max version cmd=epoch reported
+        # Keyed store ports (cmd=jaxsvc): every worker of THIS job asking
+        # for the same key gets the same port; the stores themselves are
+        # tracker-owned (kept until the tracker closes).
+        self._jaxsvc_keyed: dict[str, int] = {}
+        # Formation barrier (cmd=formbar), one-shot per job: "open" ->
+        # "done" (everyone posted) | "aborted" (a relaunch registered, a
+        # recover or rescale round started, the job closed, or the
+        # barrier timed out).
+        self._formbar_state = "open"
+        self._formbar_socks: list[socket.socket] = []
+        self._formbar_posted: set[str] = set()
+        self._formbar_timer: threading.Thread | None = None
+        self._formbar_lock = threading.Lock()
         # -- durable control-plane journal (state_dir) -----------------
         self._state_store: ckpt_mod.CheckpointStore | None = None
         self._state_seq = 0
@@ -270,7 +288,8 @@ class JobState:
 
     def close(self) -> None:
         """Drop this job's sockets (pending registrants, heartbeat
-        channels)."""
+        channels) and release its formation barrier."""
+        self._abort_formbar("job closing")
         with self._pending_lock:
             for reg in self._pending:
                 try:
@@ -346,10 +365,10 @@ class JobState:
         """Persist the control-plane state through the atomic ckpt-store
         machinery (tmp+fsync+rename, CRC-stamped, bounded retention) so
         a restarted tracker resumes exactly here.  The blob is the
-        reference's JSON object less its formation-barrier fields
-        (ROADMAP A5); ``active_sched`` and ``demoted`` record the empty
-        directive and demotion set every reply carries.  Best-effort: a
-        full disk degrades HA, it never kills the running job."""
+        reference's JSON object; ``active_sched`` and ``demoted`` record
+        the empty directive and demotion set every reply carries.
+        Best-effort: a full disk degrades HA, it never kills the running
+        job."""
         if self._state_store is None:
             return
         with self._journal_lock:
@@ -383,6 +402,8 @@ class JobState:
                         "lost": sorted(self._lost_tasks),
                         "target_world": self._target_world,
                         "committed_version": self._committed_version,
+                        "formbar_state": self._formbar_state,
+                        "formbar_posted": sorted(self._formbar_posted),
                         "active_sched": {},
                         "demoted": [],
                         "events": list(self._events)[-512:],
@@ -412,11 +433,11 @@ class JobState:
     def restore_journal(self) -> bool:
         """Replay the newest valid journal entry (tracker restart on the
         same port), the port's or the reference's: rank map, epoch,
-        membership, dead verdicts, pending target and committed version
-        resume where the dead incarnation left them; the liveness
-        timeline survives.  A reference journal's formation barrier and
-        adaptive directive are not replayed (ROADMAP A5, A8).  Returns
-        True when a journal was replayed."""
+        membership, dead verdicts, pending target, committed version and
+        the formation barrier resume where the dead incarnation left
+        them; the liveness timeline survives.  A reference journal's
+        adaptive directive is not replayed (ROADMAP A8).  Returns True
+        when a journal was replayed."""
         dc = self._state_store.load_latest()
         if dc is None:
             return False
@@ -445,16 +466,104 @@ class JobState:
                 "not replayed (the adaptive controller is ROADMAP A8)",
                 self._tag(), state.get("active_sched"),
                 state.get("demoted"))
+        self._formbar_state = state.get("formbar_state", "open")
+        self._formbar_posted = set(state.get("formbar_posted", []))
+        if (self._formbar_state == "open"
+                and len(self._formbar_posted) >= self.n_workers):
+            self._formbar_state = "done"  # resolved mid-crash
         for ev in state.get("events", []):
             self._events.append(ev)
         self._events.append({"ts": time.time(), "name": "tracker",
                              "phase": "restart", "epoch": self._epoch,
                              "world": self.n_workers})
         log("tracker:%s journal replayed (seq %d): world=%d epoch=%d "
-            "members=%d committed_version=%d", self._tag(), dc.version,
-            self.n_workers, self._epoch, len(self._members),
-            self._committed_version)
+            "members=%d committed_version=%d formbar=%s", self._tag(),
+            dc.version, self.n_workers, self._epoch, len(self._members),
+            self._committed_version, self._formbar_state)
         return True
+
+    # -- formation barrier ---------------------------------------------
+    def _formbar_post(self, sock: socket.socket, task_id: str) -> None:
+        """See protocol.CMD_FORMBAR.  Parks the socket until the barrier
+        resolves; posts after resolution get the resolved answer."""
+        with self._formbar_lock:
+            if self._formbar_state != "open":
+                self._formbar_reply(sock, self._formbar_state == "done")
+                return
+            self._formbar_socks.append(sock)
+            self._formbar_posted.add(task_id)
+            if len(self._formbar_posted) >= self.n_workers:
+                self._resolve_formbar_locked("done")
+                self._journal()
+                return
+            if self._formbar_timer is None:
+                self._formbar_timer = threading.Thread(
+                    target=self._formbar_timeout, daemon=True)
+                self._formbar_timer.start()
+        # Journal each post: a tracker crash mid-barrier must not lose
+        # who already arrived — the restarted tracker resumes the round
+        # and the (re-)posts of the parked workers complete it.
+        self._journal()
+
+    @staticmethod
+    def _formbar_reply(sock: socket.socket, proceed: bool) -> None:
+        try:
+            P.send_u32(sock, 1 if proceed else 0)
+        except OSError:
+            pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+    def _resolve_formbar_locked(self, state: str) -> None:
+        self._formbar_state = state
+        socks, self._formbar_socks = self._formbar_socks, []
+        for s in socks:
+            self._formbar_reply(s, state == "done")
+
+    def _abort_formbar(self, why: str) -> None:
+        with self._formbar_lock:
+            if self._formbar_state == "open" and (
+                    self._formbar_socks or self._formbar_posted):
+                log("tracker:%s aborting formation barrier (%s)",
+                    self._tag(), why)
+            if self._formbar_state == "open":
+                self._resolve_formbar_locked("aborted")
+
+    def _formbar_timeout(self) -> None:
+        deadline = time.monotonic() + self._registrant_timeout
+        while time.monotonic() < deadline:
+            time.sleep(0.5)
+            with self._formbar_lock:
+                if self._formbar_state != "open":
+                    return
+        with self._formbar_lock:
+            if self._formbar_state == "open":
+                log("tracker:%s formation barrier timed out "
+                    "(%d/%d posted); aborting formation", self._tag(),
+                    len(self._formbar_posted), self.n_workers)
+                self._resolve_formbar_locked("aborted")
+
+    def keyed_store_service(self, key: str) -> int:
+        """Device-plane store lookup for workers (cmd=jaxsvc), the
+        counterpart of the reference's ``keyed_jax_service``.
+
+        ``key == ""``: always a fresh store (each device-plane reform
+        forms its group on a new one).  A non-empty key (the engine
+        sends "init" at job start): create-or-get under one lock, so
+        every worker of THIS job gets the SAME port and the first
+        formation needs no worker-to-worker op — version span 0 holds
+        only application ops, and a worker relaunched before the first
+        checkpoint replays a span like the survivors'."""
+        tr = self._tracker
+        with tr._jaxsvc_lock:
+            if key and key in self._jaxsvc_keyed:
+                return self._jaxsvc_keyed[key]
+            port = tr._fresh_store_locked(self.n_workers)
+            if key and port:
+                self._jaxsvc_keyed[key] = port
+            return port
 
     # -- liveness / heartbeat ------------------------------------------
     def _emit_liveness(self, phase: str, task_id: str, **fields) -> None:
@@ -748,10 +857,17 @@ class JobState:
         self.last_activity = time.monotonic()
         self._registered_at[task_id] = self.last_activity
         self._lost_tasks.discard(task_id)
-        if cmd == P.CMD_START and task_id in self._started_tasks:
-            # A mid-job relaunch re-registering: a restart event for
-            # the liveness timeline.
-            self._emit_liveness("relaunch", task_id)
+        # Any recover/rescale round, or a fresh start from a task that
+        # already ran, means the membership moved: an open formation
+        # barrier can never complete — release it as aborted so no
+        # survivor walks into the doomed device-group formation.
+        if cmd != P.CMD_START or task_id in self._started_tasks:
+            self._abort_formbar("task %r re-registered (cmd=%s)"
+                                % (task_id, cmd))
+            if cmd == P.CMD_START:
+                # A mid-job relaunch re-registering: a restart event
+                # for the liveness timeline.
+                self._emit_liveness("relaunch", task_id)
         # Registered: the socket now waits on the barrier, not on a
         # half-read message — lift the handshake timeout.
         sock.settimeout(self._registrant_timeout)
@@ -1107,6 +1223,13 @@ class Tracker:
                 heartbeat_miss = 3.0
         self._hb_miss = max(float(heartbeat_miss), 1.0)
         self._on_dead = on_dead
+        # Tracker-hosted device-plane stores (cmd=jaxsvc).  Old epochs'
+        # stores are kept until the tracker closes: a degraded member
+        # may still hold a client of one.  One per re-formation,
+        # bounded by the job's failure count.  The stores are
+        # tracker-owned; the keyed create-or-get maps are per job.
+        self._jaxsvcs: list = []
+        self._jaxsvc_lock = threading.Lock()
         if job_gc_sec is None:
             try:
                 job_gc_sec = float(os.environ.get("RABIT_JOB_GC_SEC", 30))
@@ -1389,8 +1512,34 @@ class Tracker:
             self._listener.close()
         except OSError:
             pass
+        with self._jaxsvc_lock:
+            # a TCPStore has no close: dropping the last reference stops
+            # its server
+            self._jaxsvcs = []
         for job in self._job_list():
             job.close()
+
+    def _fresh_store_locked(self, world: int) -> int:
+        """Host a fresh ``torch.distributed.TCPStore`` for one job's
+        world and return its port, or 0 when none can be hosted.  Caller
+        holds ``_jaxsvc_lock``.  The store binds port 0 and reports the
+        port it got, so there is no probe-and-bind race."""
+        try:
+            import datetime
+
+            import torch.distributed as dist
+
+            store = dist.TCPStore(self.host, 0, world, is_master=True,
+                                  timeout=datetime.timedelta(
+                                      seconds=self._registrant_timeout),
+                                  wait_for_workers=False)
+        except Exception as e:  # noqa: BLE001 — no store: reply 0
+            log("tracker: cannot host a device-plane store: %s", e)
+            return 0
+        self._jaxsvcs.append(store)
+        log("tracker: hosting device-plane store #%d on port %d",
+            len(self._jaxsvcs), store.port)
+        return store.port
 
     def _watchdog(self) -> None:
         """Fires on_stall when a rendezvous round sits partially filled
@@ -1613,6 +1762,20 @@ class Tracker:
             sock.close()
             if bump:
                 job._journal()
+            return
+        if cmd == P.CMD_JAXSVC:
+            job = self._job_get(job_name)
+            P.send_u32(sock, job.keyed_store_service(task_id)
+                       if job is not None else 0)
+            sock.close()
+            return
+        if cmd == P.CMD_FORMBAR:
+            job = self._job_get(job_name)
+            if job is None:
+                JobState._formbar_reply(sock, False)
+                return
+            job.last_activity = time.monotonic()
+            job._formbar_post(sock, task_id)
             return
         if cmd == P.CMD_HEARTBEAT:
             period_ms = P.recv_u32(sock)

@@ -165,13 +165,28 @@ def test_serialization_tags_match_jax(engines):
 
 
 # ------------------------------------------------------------ engines
-@pytest.mark.parametrize("name", ["robust", "native", "xla",
+@pytest.mark.parametrize("name", ["robust", "native",
                                   "mock", "mpi", "bogus"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError,
                        match=f"engine '{name}' is not ported"):
         rabit_tpu_torch.init(rabit_engine=name)
     assert not rabit_tpu_torch.initialized()
+
+
+def test_xla_engine_is_served():
+    """``rabit_engine="xla"`` selects the device-plane engine; with no
+    tracker it is the world of one."""
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.engine.xla import XLAEngine
+
+    rabit_tpu_torch.init(rabit_engine="xla")
+    try:
+        assert isinstance(engine_mod.get_engine(), XLAEngine)
+        assert rabit_tpu_torch.get_world_size() == 1
+        assert not engine_mod.is_device_plane()
+    finally:
+        rabit_tpu_torch.finalize()
 
 
 def test_tracker_autodetect_raises(monkeypatch):

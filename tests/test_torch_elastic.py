@@ -510,9 +510,8 @@ def _journal_state(t, job=P.DEFAULT_JOB):
 
 
 def _comparable(state):
-    """A journal less its timestamps and the reference's formation
-    barrier fields (ROADMAP A5)."""
-    out = {k: v for k, v in state.items() if not k.startswith("formbar")}
+    """A journal less its timestamps."""
+    out = dict(state)
     out["events"] = [{k: v for k, v in e.items() if k != "ts"}
                      for e in state["events"]]
     return out
@@ -521,7 +520,8 @@ def _comparable(state):
 def test_journal_matches_the_reference_layout(tmp_path):
     """The same stimulus — a round, a committed version, a death, the
     scale-down round, a parked joiner — leaves the same journal from
-    both trackers, key for key, formation barrier aside."""
+    both trackers, key for key, the formation barrier (aborted by the
+    scale-down round) included."""
     got = {}
     for pkg in PKGS:
         d = tmp_path / pkg
@@ -540,9 +540,10 @@ def test_journal_matches_the_reference_layout(tmp_path):
             _stop(t)
             if joiner is not None:
                 joiner.close()
-    assert set(got["jax"]) - set(got["torch"]) == {"formbar_state",
-                                                   "formbar_posted"}
+    assert set(got["jax"]) == set(got["torch"])
     assert _comparable(got["torch"]) == _comparable(got["jax"])
+    assert (got["torch"]["formbar_state"],
+            got["torch"]["formbar_posted"]) == ("aborted", [])
     assert (got["torch"]["epoch"], got["torch"]["world"],
             got["torch"]["target_world"], got["torch"]["members"],
             got["torch"]["committed_version"]) == (1, 2, 3, ["0", "1"], 4)
@@ -575,6 +576,42 @@ def test_tracker_restart_mid_epoch(tmp_path, writer, reader):
         assert {tid: r2[tid].rank for tid in "ab"} == \
             {tid: r1[tid].rank for tid in "ab"}
         assert r2["c"].rank == 2
+    finally:
+        _stop(t2)
+
+
+def _formbar_post(t, task):
+    s = socket.create_connection(("127.0.0.1", t.port), timeout=30)
+    P.send_hello(s, P.CMD_FORMBAR, task, 0)
+    return s
+
+
+@pytest.mark.parametrize("writer,reader", [("torch", "torch"),
+                                           ("torch", "jax"),
+                                           ("jax", "torch"),
+                                           ("jax", "jax")])
+def test_tracker_restart_mid_formation_barrier(tmp_path, writer, reader):
+    """A tracker dies with the formation barrier half posted; one
+    restarted on the same state_dir — of either package — replays who
+    posted, and the parked worker's re-post with the last worker's post
+    completes the barrier: both get u32 1."""
+    t1 = _start(writer, 2, state_dir=str(tmp_path))
+    _round(t1, {"a": P.CMD_START, "b": P.CMD_START})
+    parked = _formbar_post(t1, "a")
+    assert _wait(lambda: _job(t1)._formbar_posted == {"a"}
+                 and _flushed(t1))
+    _stop(t1)
+    parked.close()
+    t2 = MODS[reader].Tracker(2, "127.0.0.1", 0, state_dir=str(tmp_path))
+    try:
+        j = _job(t2)
+        assert (j._formbar_state, j._formbar_posted) == ("open", {"a"})
+        t2.start()
+        posts = [_formbar_post(t2, task) for task in ("a", "b")]
+        assert [P.recv_u32(s) for s in posts] == [1, 1]
+        for s in posts:
+            s.close()
+        assert _job(t2)._formbar_state == "done"
     finally:
         _stop(t2)
 

@@ -392,9 +392,9 @@ def test_stray_client(pkg, case):
         finish(tr, pkg)
 
 
-@pytest.mark.parametrize("cmd", ["formbar", "jaxsvc", "bogus"])
+@pytest.mark.parametrize("cmd", ["bogus"])
 def test_commands_outside_the_slice_are_refused(cmd, capsys):
-    """Commands the port's tracker does not serve get the reference's
+    """A command the port's tracker does not serve gets the reference's
     treatment of an unknown command: logged, closed, no reply, and no
     job state moves."""
     tr = start_tracker("torch", 1)
@@ -451,3 +451,148 @@ def test_worker_env_matches_reference():
         finally:
             tr.stop()
     assert got["jax"] == got["torch"]
+
+
+# ------------------------------------------ formation barrier and stores
+def _formbar(tracker_port, task_id, proto="torch", world=0, job="default"):
+    """Post ``formbar``; returns a function that waits for the reply and
+    gives every byte the tracker sent before it closed."""
+    P = PROTOCOLS[proto]
+    sock = socket.create_connection(("127.0.0.1", tracker_port),
+                                    timeout=TIMEOUT)
+    P.send_hello(sock, "formbar", task_id, world, job=job)
+
+    def reply():
+        try:
+            data = b""
+            while True:
+                chunk = sock.recv(16)
+                if not chunk:
+                    return data
+                data += chunk
+        finally:
+            sock.close()
+    return reply
+
+
+def _formbar_outcome(tracker_pkg, proto, outcome):
+    """One formation-barrier story on ``tracker_pkg``'s tracker, every
+    message in ``proto``'s bytes; returns each post's reply bytes and
+    the job's barrier state."""
+    world = 2
+    kw = {"registrant_timeout_sec": 1.0} if outcome == "timed_out" else {}
+    tr = TRACKERS[tracker_pkg].Tracker(world, host="127.0.0.1", port=0,
+                                       **kw)
+    tr.start()
+    got = []
+    try:
+        clients = [Client(task_id=str(i), proto=proto, world=world)
+                   for i in range(world)]
+        run_round(tr.port, clients)
+        if outcome == "all_posted":
+            waits = [_formbar(tr.port, c.task_id, proto, world)
+                     for c in clients]
+            got = [w() for w in waits]
+            got.append(_formbar(tr.port, "0", proto, world)())  # after
+        elif outcome == "aborted":
+            first = _formbar(tr.port, "0", proto, world)
+            deadline = time.monotonic() + TIMEOUT
+            while (not tr._default_job()._formbar_posted
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            # task 1 re-registers as a mid-job relaunch: a new round
+            # that the other member completes with a recover
+            relaunch = [Client("1", proto=proto, world=world),
+                        Client("0", proto=proto, cmd="recover",
+                               world=world)]
+            replies = run_round(tr.port, relaunch)
+            assert replies["1"].relaunched == 1
+            got = [first(), _formbar(tr.port, "1", proto, world)()]
+        else:
+            got = [_formbar(tr.port, "0", proto, world)(),
+                   _formbar(tr.port, "1", proto, world)()]
+        state = tr._default_job()._formbar_state
+        shutdown_all(tr.port, [c.task_id for c in clients])
+    finally:
+        finish(tr, tracker_pkg)
+    return got, state
+
+
+@pytest.mark.parametrize("proto", ["jax", "torch"])
+@pytest.mark.parametrize("outcome,want", [
+    ("all_posted", ([b"\x01\0\0\0"] * 3, "done")),
+    ("aborted", ([b"\0\0\0\0"] * 2, "aborted")),
+    ("timed_out", ([b"\0\0\0\0"] * 2, "aborted"))])
+def test_formation_barrier_matches_reference(proto, outcome, want):
+    """The formation barrier's stories — every worker posted (and a post
+    after resolution), aborted by a relaunch's re-registration, timed
+    out — give the same reply bytes and the same barrier state from
+    both trackers, to clients speaking either package's bytes."""
+    got = {pkg: _formbar_outcome(pkg, proto, outcome)
+           for pkg in ("jax", "torch")}
+    assert got["torch"] == got["jax"] == want
+
+
+def _jaxsvc(tracker_port, key, proto="torch", world=2):
+    P = PROTOCOLS[proto]
+    sock = socket.create_connection(("127.0.0.1", tracker_port),
+                                    timeout=TIMEOUT)
+    try:
+        P.send_hello(sock, "jaxsvc", key, world)
+        port = P.recv_u32(sock)
+        assert sock.recv(1) == b""
+    finally:
+        sock.close()
+    return port
+
+
+@pytest.mark.parametrize("proto", ["jax", "torch"])
+def test_jaxsvc_keyed_and_fresh(proto):
+    """``jaxsvc``: a key is create-or-get (the same port for every ask),
+    ``""`` a fresh store each time, and the port names a live
+    ``torch.distributed.TCPStore`` hosted by the tracker — where the
+    reference hosts a JAX coordination service (the reply bytes are the
+    same u32)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    tr = start_tracker("torch", 2)
+    try:
+        run_round(tr.port, [Client("0"), Client("1")])
+        init = [_jaxsvc(tr.port, "init", proto) for _ in range(3)]
+        fresh = [_jaxsvc(tr.port, "", proto) for _ in range(2)]
+        assert init[0] and len(set(init)) == 1
+        assert all(fresh) and len(set(fresh) | {init[0]}) == 3
+        for port in (init[0], fresh[1]):
+            a = dist.TCPStore("127.0.0.1", port, None, False,
+                              datetime.timedelta(seconds=TIMEOUT),
+                              wait_for_workers=False)
+            b = dist.TCPStore("127.0.0.1", port, None, False,
+                              datetime.timedelta(seconds=TIMEOUT),
+                              wait_for_workers=False)
+            a.set("k", b"v")
+            assert b.get("k") == b"v"
+        assert len(tr._jaxsvcs) == 3
+        shutdown_all(tr.port, ["0", "1"])
+    finally:
+        finish(tr, "torch")
+    assert tr._jaxsvcs == []
+
+
+def test_jaxsvc_without_a_store_replies_zero(monkeypatch):
+    """A tracker that cannot host a store replies 0, as the reference's
+    does without jaxlib; an unknown job gets 0 too."""
+    import torch.distributed as dist
+
+    def refuse(*a, **k):
+        raise RuntimeError("no store here")
+    monkeypatch.setattr(dist, "TCPStore", refuse)
+    tr = start_tracker("torch", 1)
+    try:
+        run_round(tr.port, [Client("0")])
+        assert _jaxsvc(tr.port, "init") == 0
+        assert _jaxsvc(tr.port, "") == 0
+        shutdown_all(tr.port, ["0"])
+    finally:
+        finish(tr, "torch")
