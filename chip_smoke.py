@@ -47,7 +47,7 @@ Phases, each raising on failure (the script then exits non-zero):
     float64 ``index_add_``: equal to it on weights k/16, whose float32
     sums are exact, and their drift from it on normal weights printed;
 10. the GBDT main path: ``boosting.train`` on 2,097,152 rows x 64
-    features, 256 bins and a missing slot, depth 6, 4 rounds -- the
+    features, 256 bins and a missing slot, depth 6, 2 rounds -- the
     float32 kernel against the plain path, then the default bfloat16
     kernel, with its launches counted against the level chunks and by
     channel count (nw = 2 x the level's nodes);
@@ -252,6 +252,35 @@ Phases, each raising on failure (the script then exits non-zero):
     17's host-plane times, death -> degrade, relaunch start -> degraded
     registration, the reform ms and the phase's wall.
 
+24. (after 23) the linear learner (``learn/linear.py`` on the L-BFGS
+    solver, ``learn/lbfgs.py``) and the device plane's adopt and mixed
+    modes.  (a) World 1: logistic regression, ``reg_L2=1``, 10 L-BFGS
+    iterations, on 4,194,304 rows x 32 hashed features in 2^20 (the ELL
+    k-means shard's rows and slots), labels from a planted model, all
+    from a seed; the first eval and gradient on the card against the CPU
+    path at the same weights within the float32 bar, the objective
+    falling every iteration, accuracy over 0.5 points above the base
+    score's; then ``python -m rabit_tpu_torch.learn.linear`` on a small
+    LibSVM file.  (b) The same rows under ``torchrun --standalone
+    --nproc_per_node 3`` (this script with ``--phase24-linear ok``):
+    each rank its own gloo group, ``rabit_engine="xla"`` with no
+    tracker, so adopt mode, rows by ``splitrows.rows_for_rank``; final
+    weights and objective within the bars of ``P24_W_TOL`` and
+    ``P24_OBJ_RTOL`` of (a)'s.  Then three plain processes on one group
+    (MASTER_ADDR/MASTER_PORT) where rank 1 SIGKILLs itself entering
+    iteration 2's gradient allreduce: both survivors raise
+    ``RuntimeError`` within ``P24_RAISE_SEC`` and exit 0.  (c)
+    ``kmeans.run`` on phase 17's dense16 thirds, 4 iterations, under the
+    port's ``Tracker(3)`` with ``RABIT_TRACKER_PIN_RANKS=1`` and ranks
+    from torchrun (``--phase24-kmeans``): ``rabit_engine="xla"`` over
+    ``pyrobust`` in mixed mode, the stats on the external gloo group,
+    checkpoints on the host engine; every stats allreduce counting
+    4,194,304 rows, iterations 1-3 phase 17's counts, version 3 within
+    the float32 bar of phase 17's; B1 by rank on the ``kernels`` line.
+    It prints s per iteration, eval and gradient ms, the ELL's resident
+    bytes, the gradient allreduce ms on the adopted group, death ->
+    raise, and the stats op ms on the external group beside phase 23's.
+
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
 (``{"kernels": [...]}``), and ``{"ok": true, "device": {...}}``.
@@ -286,7 +315,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FMA
 F32_ADDS_PER_S = PEAK_OPS["float32"] / 2            # an FMA counts as two
 SMEM_BYTES_PER_CLOCK = 128        # an SM's shared memory, 32 banks x 4 B
 GBDT_ROWS, GBDT_FEATURES, GBDT_NBIN = 1 << 21, 64, 256
-GBDT_DEPTH, GBDT_ROUNDS = 6, 4
+# 2 rounds (4 until phase 24 was added): the script's time, not a width
+GBDT_DEPTH, GBDT_ROUNDS = 6, 2
 # float32 sums against the plain version: the JAX tests' own bar
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-3
 # final centroids (unit rows) of run() against the plain device loop
@@ -844,16 +874,26 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
     log(f"[10] GBDT main path: n={n} f={f} nbin={GBDT_NBIN} (+1 missing "
         f"slot) depth={GBDT_DEPTH} rounds={GBDT_ROUNDS} logistic (data "
         f"{time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    bins, _cuts = bh.quantize(x, GBDT_NBIN)   # train()'s round-0 binning
-    binning_s = time.perf_counter() - t0
     chunk = hk.max_channels(GBDT_NBIN + 1, f) // 2
     runs = {}
     real = hk.hist_fused_multi
+    real_cuts, real_apply = bh.quantile_cuts, gb.apply_cuts
     for label, kw in (("f32 kernel", dict(compute_dtype="float32")),
                       ("plain", dict(use_kernel=False)),
                       ("bf16 kernel", {})):
         events, stamps, widths = [], [], []
+        # train()'s round-0 binning, timed in place; its bins are kept
+        binning = dict(s=0.0)
+
+        def binned(fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                binning["s"] += time.perf_counter() - t
+                if fn is real_apply:
+                    binning["bins"] = out
+                return out
+            return call
 
         def timed(*a, **k):
             ev = (torch.cuda.Event(enable_timing=True),
@@ -874,6 +914,7 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
             commit(model)
 
         hk.hist_fused_multi, rabit_tpu_torch.checkpoint = timed, stamped
+        bh.quantile_cuts, gb.apply_cuts = binned(real_cuts), binned(real_apply)
         for counts in (kk.LAUNCHES, hk.LAUNCHES):
             for key in counts:
                 counts[key] = 0
@@ -884,8 +925,10 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
             torch.cuda.synchronize()
         finally:
             hk.hist_fused_multi, rabit_tpu_torch.checkpoint = real, commit
+            bh.quantile_cuts, gb.apply_cuts = real_cuts, real_apply
             rabit_tpu_torch.finalize()
         wall = time.perf_counter() - t1
+        bins, binning_s = binning["bins"], binning["s"]
         launches = hk.LAUNCHES["gbdt_hist"]
         want = (0 if label == "plain" else
                 sum(level_chunks(t, GBDT_DEPTH, chunk) for t in model.trees))
@@ -899,7 +942,7 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
         rounds = np.diff([t1] + stamps)
         runs[label] = dict(model=model, losses=losses, acc=acc, pred=pred,
                            launches=launches, wall=wall, b3_ms=b3_ms,
-                           rounds=rounds,
+                           rounds=rounds, binning_s=binning_s, bins=bins,
                            by_nw={nw: widths.count(nw) for nw in set(widths)})
         log(f"    {label}: {wall:.2f} s ({', '.join(f'{r:.2f}' for r in rounds)}"
             f" s by round), histogram launches {launches} (= level chunks), "
@@ -934,9 +977,9 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
     log(f"    bf16 kernel launches by channel count nw: "
         f"{dict(sorted(k16['by_nw'].items()))}")
     return dict(launches=k16["launches"], wall=k16["wall"],
-                rounds=k16["rounds"], b3_ms=k16["b3_ms"], binning_s=binning_s,
-                plain_wall=plain["wall"], f32_wall=k32["wall"], bins=bins,
-                by_nw=k16["by_nw"])
+                rounds=k16["rounds"], b3_ms=k16["b3_ms"],
+                binning_s=k16["binning_s"], plain_wall=plain["wall"],
+                f32_wall=k32["wall"], bins=k16["bins"], by_nw=k16["by_nw"])
 
 
 def index_add_ms(torch, bins_t, w, nbin, budget=1 << 33):
@@ -4666,6 +4709,7 @@ def phase23(torch, w3, km):
         out["kmeans_stats_dense"] = {
             str(r): [x["launches"]["kmeans_stats_dense"] for x in v]
             for r, v in lives.items()}
+        out["stats_ms"] = dev_ms
 
         # (b) GBDT, no fault
         code, gb_secs = _launch_ranks("23", "gbdt", tmp,
@@ -4738,6 +4782,594 @@ def phase23(torch, w3, km):
         f"({K}, 257) allreduce returned its input; {nccl_ms:.4f} ms a "
         f"call (median of 5); multi-card NCCL stays unverified here")
     log(f"    phase 23 wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------- the linear learner and adopt/mixed modes
+P24_DEVICE = "cuda"                # where phase 24 runs the learners
+P24_FEATURES = 1 << 20             # a hashed feature space
+P24_NNZ = 32                       # the ELL k-means shard's slots a row
+P24_SEED = 24
+P24_PARAMS = dict(objective="logistic", reg_L2="1", row_block="1024",
+                  max_lbfgs_iter="10", silent="1")
+P24_GROUP_SEC = 120                # the torch.distributed groups' timeout
+P24_RAISE_SEC = 30.0               # death -> survivors' RuntimeError bar
+P24_KILL_ITER = 2                  # rank 1 dies entering this iteration's
+                                   # gradient allreduce
+P24_DEATH_ROWS = MAIN_ROWS // 8    # the death comes at iteration 2: no
+                                   # need for (a)'s full rows
+P24_KM_ITERS = 4
+# world 3 against world 1: f32 sums in another order (shards, then a
+# float64 sum of three), so the objective within the float32 bar and the
+# weights within the reference's own distributed bar
+# (tests/test_learn_dist.py)
+P24_OBJ_RTOL = SUM_RTOL
+P24_W_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def linear_rows(n=MAIN_ROWS, nnz=P24_NNZ, nf=P24_FEATURES, seed=P24_SEED):
+    """A SparseMat of n rows of nnz hashed features in [0, nf) with
+    normal values, labelled from a planted logistic model (labels drawn
+    from its probabilities), from ``seed``."""
+    from rabit_tpu_torch.learn.data import SparseMat
+
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal(nf).astype(np.float32)
+    idx = np.empty((n, nnz), np.int32)
+    val = np.empty((n, nnz), np.float32)
+    labels = np.empty(n, np.float32)
+    block = 1 << 20
+    for lo in range(0, n, block):
+        hi = min(n, lo + block)
+        idx[lo:hi] = rng.integers(0, nf, (hi - lo, nnz), dtype=np.int32)
+        val[lo:hi] = rng.standard_normal((hi - lo, nnz), np.float32)
+        margin = (w_true[idx[lo:hi]] * val[lo:hi]).sum(1)
+        labels[lo:hi] = rng.random(hi - lo) < 1.0 / (1.0 + np.exp(-margin))
+    return SparseMat(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
+                     findex=idx.reshape(-1), fvalue=val.reshape(-1),
+                     labels=labels, feat_dim=nf)
+
+
+def _take_rows(data, rows):
+    """Rows ``rows`` (any order) of a SparseMat of equal-length rows."""
+    from rabit_tpu_torch.learn.data import SparseMat
+
+    nnz = int(data.indptr[1] - data.indptr[0])
+    rows = np.asarray(rows, np.int64)
+    return SparseMat(indptr=np.arange(len(rows) + 1, dtype=np.int64) * nnz,
+                     findex=data.findex.reshape(-1, nnz)[rows].reshape(-1),
+                     fvalue=data.fvalue.reshape(-1, nnz)[rows].reshape(-1),
+                     labels=data.labels[rows], feat_dim=data.feat_dim)
+
+
+def _sync(torch):
+    if P24_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def linear_objective(data, device=P24_DEVICE):
+    """Phase 24's objective on ``data``: P24_PARAMS on ``device``, with
+    every eval, gradient and iteration timed on the host clock (each
+    ends in a copy to the host, so the device has finished)."""
+    from rabit_tpu_torch.learn.linear import LinearObjFunction
+
+    obj = LinearObjFunction()
+    obj.dtrain = data
+    for k, v in dict(P24_PARAMS, linear_device=device).items():
+        obj.set_param(k, v)
+    obj.times = dict(eval=[], grad=[], iter=[])
+    obj.objvals = []
+    for name, key in (("eval", "eval"), ("calc_grad", "grad")):
+        real = getattr(obj, name)
+
+        def timed(w, real=real, key=key):
+            t = time.perf_counter()
+            out = real(w)
+            obj.times[key].append(time.perf_counter() - t)
+            return out
+        setattr(obj, name, timed)
+    real_iter, real_init = obj.lbfgs.update_one_iter, obj.lbfgs.init
+
+    def init():
+        real_init()
+        obj.objvals.append(obj.lbfgs.old_objval)
+
+    def update_one_iter():
+        t = time.perf_counter()
+        done = real_iter()
+        obj.times["iter"].append(time.perf_counter() - t)
+        obj.objvals.append(obj.lbfgs.new_objval if done
+                           else obj.lbfgs.old_objval)
+        return done
+    obj.lbfgs.init, obj.lbfgs.update_one_iter = init, update_one_iter
+    return obj
+
+
+def linear_accuracy(torch, obj, weight):
+    """Training accuracy of ``weight`` over the resident ELL blocks, and
+    that of the constant base score (logit 0: every row predicted 0)."""
+    from rabit_tpu_torch.learn import linear
+
+    idx, val, labels, valid = obj._ell_blocks()
+    nf = obj.model.num_feature
+    base = float(np.float32(obj.model.base_score + weight[nf]))
+    m = linear.margins(obj._wpad(weight, idx.device), base, idx, val)
+    n = float(valid.sum())
+    acc = float((((m > 0).float() == labels).float() * valid).sum()) / n
+    return acc, float(((labels == 0).float() * valid).sum()) / n
+
+
+def linear_rank(mode, out_dir):
+    """One rank process of phase 24 (b) (``chip_smoke.py --phase24-linear
+    MODE DIR``), under ``torchrun`` (``ok``) or as a plain process with
+    MASTER_ADDR/MASTER_PORT (``death``): its own gloo group, then
+    ``rabit_engine="xla"`` with no tracker, so adopt mode; (a)'s rows
+    split by ``splitrows.rows_for_rank``.  In ``death`` mode rank 1
+    SIGKILLs itself entering iteration P24_KILL_ITER's gradient
+    allreduce and the survivors must raise RuntimeError.  Writes a JSON
+    record to DIR."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import splitrows
+
+    dist.init_process_group(
+        "gloo", timeout=datetime.timedelta(seconds=P24_GROUP_SEC))
+    rabit_tpu_torch.init(rabit_engine="xla")
+    eng = engine_mod.get_engine()
+    rank, world = eng.rank, eng.world_size
+    rec = dict(mode=mode, rank=rank, world=world, dist_rank=dist.get_rank(),
+               adopted=eng._adopted, no_host=eng._no_host_transport,
+               plane=engine_mod.is_device_plane(), backend=eng.backend,
+               grad_ms=[])
+    data = linear_rows(n=P24_DEATH_ROWS if mode == "death" else MAIN_ROWS)
+    shard = _take_rows(data, splitrows.rows_for_rank(data.num_row, rank,
+                                                     world))
+    del data
+    rec["rows"] = shard.num_row
+    obj = linear_objective(shard)
+    real_ar = eng.allreduce
+
+    def allreduce(buf, op, prepare_fun=None):
+        grad = (isinstance(buf, np.ndarray)
+                and buf.size == obj.lbfgs.num_dim)
+        if (grad and mode == "death" and rank == 1
+                and obj.lbfgs.num_iteration == P24_KILL_ITER - 1):
+            with open(os.path.join(out_dir, "killed"), "w") as f:
+                f.write(repr(time.monotonic()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        t = time.perf_counter()
+        out = real_ar(buf, op, prepare_fun)
+        if grad:
+            rec["grad_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+    eng.allreduce = allreduce
+    path = os.path.join(out_dir, f"{mode}.{rank}.json")
+    try:
+        obj.lbfgs.run()
+    except RuntimeError as e:
+        if mode != "death":
+            raise
+        rec.update(raised=str(e), raised_at=time.monotonic(),
+                   iteration=obj.lbfgs.num_iteration)
+        with open(path, "w") as f:
+            json.dump(rec, f)
+        os._exit(0)                # the group is broken: skip its teardown
+    rec.update(objvals=obj.objvals, times=obj.times,
+               resident=sum(t.numel() * t.element_size()
+                            for t in obj._ell_blocks()))
+    if rank == 0:
+        np.save(os.path.join(out_dir, f"{mode}.weight.npy"),
+                obj.lbfgs.get_weight())
+    with open(path, "w") as f:
+        json.dump(rec, f)
+    rabit_tpu_torch.finalize()
+    dist.destroy_process_group()
+    return 0
+
+
+def kmeans_mixed_rank(out_dir):
+    """One rank process of phase 24 (c) (``chip_smoke.py
+    --phase24-kmeans DIR``) under ``torchrun`` with the port's tracker
+    in RABIT_TRACKER_URI/PORT: its own gloo group, then
+    ``rabit_engine="xla"`` over ``pyrobust``, so mixed mode (registered
+    as ``dist.get_rank()``); ``kmeans.run`` on phase 17's dense16 third,
+    P24_KM_ITERS iterations, each stats allreduce timed on the external
+    group.  Writes a JSON record to DIR."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", timeout=datetime.timedelta(seconds=P24_GROUP_SEC))
+    rabit_tpu_torch.init(rabit_engine="xla", rabit_inner_engine="pyrobust",
+                         rabit_timeout_sec=W3_TIMEOUT)
+    eng = engine_mod.get_engine()
+    rank = eng.rank
+    rec = dict(rank=rank, dist_rank=dist.get_rank(), adopted=eng._adopted,
+               degraded=eng._degraded, plane=engine_mod.is_device_plane(),
+               external=eng.group is dist.group.WORLD, ops=[], tiers=[],
+               centroids={})
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                           picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+    shard = _shard_rows(data, local_data_slice(rank, W3_RANKS, MAIN_ROWS))
+    del data
+    real_ar, real_prepare = eng.allreduce, km.prepare_shard
+    real_ckpt = rabit_tpu_torch.checkpoint
+
+    def allreduce(buf, op, prepare_fun=None):
+        if not isinstance(buf, torch.Tensor):
+            return real_ar(buf, op, prepare_fun)
+        before = eng.path_stats["device_ops"]
+        _sync(torch)
+        t = time.perf_counter()
+        out = real_ar(buf, op, prepare_fun)
+        _sync(torch)
+        rec["ops"].append(dict(
+            version=eng.version_number, ms=(time.perf_counter() - t) * 1e3,
+            on=out.device.type, counts=out[:, -1].tolist(),
+            path=("device" if eng.path_stats["device_ops"] > before
+                  else "host")))
+        return out
+
+    def dense16(*a, **k):
+        staged = real_prepare(*a, budget=0, **k)     # as phase 17
+        rec["tiers"].append(staged[0])
+        return staged
+
+    def checkpoint(model, *a, **k):
+        rec["centroids"][eng.version_number + 1] = model.centroids.tolist()
+        return real_ckpt(model, *a, **k)
+    eng.allreduce = allreduce
+    km.prepare_shard = dense16
+    rabit_tpu_torch.checkpoint = checkpoint
+    for key in kk.LAUNCHES:
+        kk.LAUNCHES[key] = 0
+    km.run(shard, K, P24_KM_ITERS, compute_dtype="bfloat16",
+           device=P24_DEVICE)
+    _sync(torch)
+    rec.update(launches=dict(kk.LAUNCHES), stats=dict(eng.path_stats),
+               backend=eng.backend)
+    with open(os.path.join(out_dir, f"kmeans.{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    rabit_tpu_torch.finalize()
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(args, env_extra=None):
+    """``torchrun --standalone --nproc_per_node W3_RANKS`` of this script
+    with ``args``, no ``RABIT_`` variable but ``env_extra``; bounded by
+    W3_TIMEOUT.  Returns seconds; raises with the output's end on a
+    failure."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RABIT_")}
+    env.update(PYTHONPATH=ROOT, **(env_extra or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(W3_RANKS), os.path.abspath(__file__)]
+        + list(args), cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=W3_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args)} failed "
+                             f"({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    return time.perf_counter() - t0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _linear_death(tmp):
+    """Phase 24 (b)'s death: three plain rank processes on one group
+    (MASTER_ADDR/MASTER_PORT, so no agent tears the job down); returns
+    the survivors' records and the death time."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RABIT_")}
+    env.update(PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(W3_RANKS))
+    procs = []
+    try:
+        for r in range(W3_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--phase24-linear", "death", tmp], cwd=ROOT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        codes = [p.wait(timeout=W3_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = [p.stderr.read()[-2000:] for p in procs]
+    if codes != [0, -signal.SIGKILL, 0]:
+        raise AssertionError(f"phase 24 (b) death: exit codes {codes} (want "
+                             f"0, -SIGKILL, 0):\n" + "\n".join(errs))
+    with open(os.path.join(tmp, "killed")) as f:
+        killed = float(f.read())
+    recs = []
+    for r in (0, 2):
+        with open(os.path.join(tmp, f"death.{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, killed
+
+
+def phase24(torch, w3, p23):
+    """Phase 24: the linear learner on the L-BFGS solver and the device
+    plane's adopt and mixed modes.  (a) World 1, ``rabit_engine=empty``:
+    logistic regression on ``linear_rows()`` (MAIN_ROWS x P24_NNZ in
+    2^20 hashed features), P24_PARAMS; the first eval and gradient on
+    the card against the CPU path at the same weights within the
+    float32 bar, the objective falling every iteration, accuracy over
+    0.5 points above the base score's; then the CLI on a small LibSVM
+    file.  (b) The same under ``torchrun`` at world 3 in adopt mode
+    (gloo; the ranks share the card), final weights and objective
+    within P24_W_TOL / P24_OBJ_RTOL of (a)'s; then three plain processes
+    where rank 1 SIGKILLs itself entering iteration 2's gradient
+    allreduce and both survivors raise RuntimeError within
+    P24_RAISE_SEC.  (c) ``kmeans.run`` on phase 17's dense16 thirds
+    under the port's ``Tracker(3)`` (RABIT_TRACKER_PIN_RANKS=1) and
+    torchrun's group, mixed mode: every stats allreduce on the external
+    group counting MAIN_ROWS rows, iterations 1-3 phase 17's counts,
+    version 3's centroids within the float32 bar of phase 17's; B1 by
+    rank.  Returns B1's launches by rank."""
+    from rabit_tpu_torch.learn import linear
+
+    import rabit_tpu_torch
+
+    t0 = time.perf_counter()
+    log(f"[24] the linear learner (L-BFGS, logistic, reg_L2=1) on "
+        f"{MAIN_ROWS} x {P24_NNZ} rows in {P24_FEATURES} hashed features, "
+        f"{P24_PARAMS['max_lbfgs_iter']} iterations: world 1, then torchrun "
+        f"world {W3_RANKS} in adopt mode and a rank's death; k-means under "
+        f"a tracker and torchrun's group (mixed mode) | nvidia-smi: "
+        f"{smi_line()}")
+    # (a) world 1
+    t = time.perf_counter()
+    data = linear_rows()
+    t_data = time.perf_counter() - t
+    rabit_tpu_torch.init(rabit_engine="empty")
+    try:
+        obj = linear_objective(data)
+        cpu = linear_objective(data, device="cpu")
+        for o in (obj, cpu):
+            o.model.num_feature = P24_FEATURES
+            o.model.init_base_score()
+        rng = np.random.default_rng(P24_SEED + 1)
+        t = time.perf_counter()
+        obj._ell_blocks()
+        _sync(torch)
+        t_stage = time.perf_counter() - t
+        resident = sum(x.numel() * x.element_size() for x in obj._ell)
+        errs = []
+        for w in (np.zeros(P24_FEATURES + 1),
+                  0.05 * rng.standard_normal(P24_FEATURES + 1)):
+            e_dev, e_cpu = obj.eval(w), cpu.eval(w)
+            g_dev, g_cpu = obj.calc_grad(w), cpu.calc_grad(w)
+            if not (np.allclose(e_dev, e_cpu, rtol=SUM_RTOL, atol=SUM_ATOL)
+                    and np.allclose(g_dev, g_cpu, rtol=SUM_RTOL,
+                                    atol=SUM_ATOL)):
+                raise AssertionError(
+                    f"phase 24 (a): eval {e_dev} vs CPU {e_cpu}, gradient "
+                    f"off by {float(np.abs(g_dev - g_cpu).max())}")
+            errs.append((abs(e_dev - e_cpu) / abs(e_cpu),
+                         float(np.abs(g_dev - g_cpu).max())))
+        del cpu
+        for key in obj.times:
+            obj.times[key].clear()
+        obj.model = linear.LinearModel()
+        for k, v in P24_PARAMS.items():
+            obj.model.set_param(k, v)
+        t = time.perf_counter()
+        obj.lbfgs.run()
+        _sync(torch)
+        t_run = time.perf_counter() - t
+        weight = obj.lbfgs.get_weight()
+        objvals = list(obj.objvals)
+        if not (np.isfinite(weight).all() and weight.shape
+                == (P24_FEATURES + 1,)) or any(
+                    b >= a for a, b in zip(objvals, objvals[1:])):
+            raise AssertionError(f"phase 24 (a): weights finite "
+                                 f"{np.isfinite(weight).all()}, objective "
+                                 f"by iteration {objvals}")
+        acc, base_acc = linear_accuracy(torch, obj, weight)
+        if not acc > base_acc + 0.005:
+            raise AssertionError(f"phase 24 (a): accuracy {acc} vs the base "
+                                 f"score's {base_acc}")
+        times = {k: list(v) for k, v in obj.times.items()}
+        del obj
+    finally:
+        rabit_tpu_torch.finalize()
+    del data
+    torch.cuda.empty_cache()
+    log(f"    (a) world 1: data {t_data:.1f} s, ELL staged in {t_stage:.2f} s "
+        f"({resident} B resident); first eval and gradient on the card vs "
+        f"the CPU path at weights 0 and random: relative eval error, max "
+        f"|gradient error| {[(f'{a:.3g}', f'{b:.3g}') for a, b in errs]}; "
+        f"run() {t_run:.2f} s, {len(times['iter'])} iterations at "
+        f"{[round(s, 3) for s in times['iter']]} s, {len(times['eval'])} "
+        f"evals at median {statistics.median(times['eval']) * 1e3:.1f} ms, "
+        f"{len(times['grad'])} gradients at median "
+        f"{statistics.median(times['grad']) * 1e3:.1f} ms; objective "
+        f"{[round(v, 1) for v in objvals]} falling; accuracy {acc:.4f} vs "
+        f"the base score's {base_acc:.4f}")
+    out = dict(linear_world1=dict(
+        iter_s=times["iter"], eval_ms=[s * 1e3 for s in times["eval"]],
+        grad_ms=[s * 1e3 for s in times["grad"]], resident=resident))
+    with tempfile.TemporaryDirectory() as tmp:
+        small = linear_rows(n=20000, nnz=16, nf=4096, seed=P24_SEED + 2)
+        path = os.path.join(tmp, "train.libsvm")
+        with open(path, "w") as f:
+            for r in range(small.num_row):
+                fi, fv = small.row(r)
+                f.write(f"{small.labels[r]:g} " + " ".join(
+                    f"{i}:{v:.6g}" for i, v in zip(fi, fv)) + "\n")
+        model_out = os.path.join(tmp, "linear.model")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("RABIT_")}
+        proc = subprocess.run(
+            [sys.executable, "-m", "rabit_tpu_torch.learn.linear", path,
+             "objective=logistic", "reg_L2=1", "max_lbfgs_iter=10",
+             f"linear_device={P24_DEVICE}", f"model_out={model_out}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(env, PYTHONPATH=ROOT))
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 24 CLI failed ({proc.returncode}):"
+                                 f"\n{proc.stdout}\n{proc.stderr}")
+        model = linear.LinearModel()
+        model.load(model_out)
+        hits = float(((model.predict(small) > 0.5) == (small.labels > 0.5)
+                      ).mean())
+        base_hits = float((small.labels == 0).mean())
+        if model.num_feature > 4096 or not np.isfinite(model.weight).all() \
+                or not hits > base_hits + 0.005:
+            raise AssertionError(f"phase 24 CLI model: num_feature "
+                                 f"{model.num_feature}, accuracy {hits} vs "
+                                 f"{base_hits}")
+        log(f"    (a) CLI: python -m rabit_tpu_torch.learn.linear on 20000 "
+            f"LibSVM rows -> a binf model of {model.num_feature} features, "
+            f"accuracy {hits:.4f} vs {base_hits:.4f}; "
+            f"{proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}")
+
+        # (b) torchrun, adopt mode, world 3
+        secs = _torchrun(["--phase24-linear", "ok", tmp])
+        recs = []
+        for r in range(W3_RANKS):
+            with open(os.path.join(tmp, f"ok.{r}.json")) as f:
+                recs.append(json.load(f))
+        w3w = np.load(os.path.join(tmp, "ok.weight.npy"))
+        for r, rec in enumerate(recs):
+            if (rec["rank"], rec["world"], rec["dist_rank"]) != (r, W3_RANKS,
+                                                                 r) or \
+                    not (rec["adopted"] and rec["no_host"] and rec["plane"]) \
+                    or rec["backend"] != "gloo":
+                raise AssertionError(f"phase 24 (b) rank {r}: {rec}")
+        if sum(rec["rows"] for rec in recs) != MAIN_ROWS or any(
+                rec["objvals"] != recs[0]["objvals"] for rec in recs):
+            raise AssertionError("phase 24 (b): rows or objectives differ "
+                                 "between the ranks")
+        werr = float(np.abs(w3w - weight).max())
+        if len(recs[0]["objvals"]) != len(objvals) or not np.allclose(
+                recs[0]["objvals"], objvals, rtol=P24_OBJ_RTOL) or \
+                not np.allclose(w3w, weight, **P24_W_TOL):
+            raise AssertionError(
+                f"phase 24 (b): objective {recs[0]['objvals']} vs world 1's "
+                f"{objvals}; weights off by {werr}")
+        oerr = max(abs(a - b) / abs(b)
+                   for a, b in zip(recs[0]["objvals"], objvals))
+        grad_ms = [t for rec in recs for t in rec["grad_ms"]]
+        log(f"    (b) torchrun world {W3_RANKS}, adopt mode (gloo, no "
+            f"tracker): {secs:.1f} s; rows by rank "
+            f"{[rec['rows'] for rec in recs]}; objective within {oerr:.3g} "
+            f"relative of world 1's at every iteration, weights within "
+            f"{werr:.3g}; iterations by rank 0 "
+            f"{[round(s, 3) for s in recs[0]['times']['iter']]} s; the "
+            f"gradient allreduce ({(P24_FEATURES + 1) * 8} B of float64 on "
+            f"the group) median {statistics.median(grad_ms):.2f} ms over "
+            f"{len(grad_ms)}")
+        out["linear_world3"] = dict(
+            iter_s=recs[0]["times"]["iter"], grad_allreduce_ms=grad_ms)
+        survivors, killed = _linear_death(tmp)
+        raise_s = [rec["raised_at"] - killed for rec in survivors]
+        for rec in survivors:
+            if "no host transport" not in rec["raised"] or \
+                    rec["iteration"] != P24_KILL_ITER - 1:
+                raise AssertionError(f"phase 24 (b) death: rank "
+                                     f"{rec['rank']} {rec}")
+        if not all(0 <= s < P24_RAISE_SEC for s in raise_s):
+            raise AssertionError(f"phase 24 (b) death -> raise {raise_s} s "
+                                 f"(bar {P24_RAISE_SEC} s)")
+        log(f"    (b) rank 1 SIGKILLed entering iteration {P24_KILL_ITER}'s "
+            f"gradient allreduce -> RuntimeError on ranks 0 and 2 after "
+            f"{[round(s, 3) for s in raise_s]} s (no host transport in "
+            f"adopt mode); both exited 0")
+        out["linear_death_raise_s"] = raise_s
+
+        # (c) k-means, tracker + torchrun's group: mixed mode
+        from rabit_tpu_torch.tracker.tracker import Tracker
+
+        pin = os.environ.get("RABIT_TRACKER_PIN_RANKS")
+        os.environ["RABIT_TRACKER_PIN_RANKS"] = "1"
+        tracker = Tracker(W3_RANKS, host="127.0.0.1", port=0)
+        tracker.start()
+        try:
+            secs = _torchrun(["--phase24-kmeans", tmp], {
+                "RABIT_TRACKER_URI": "127.0.0.1",
+                "RABIT_TRACKER_PORT": str(tracker.port)})
+            tracker.join(30)
+        finally:
+            tracker.stop()
+            if pin is None:
+                os.environ.pop("RABIT_TRACKER_PIN_RANKS")
+            else:
+                os.environ["RABIT_TRACKER_PIN_RANKS"] = pin
+        kms = []
+        for r in range(W3_RANKS):
+            with open(os.path.join(tmp, f"kmeans.{r}.json")) as f:
+                kms.append(json.load(f))
+    for r, rec in enumerate(kms):
+        tag = f"phase 24 (c) rank {r}"
+        if (rec["rank"], rec["dist_rank"]) != (r, r) or not (
+                rec["adopted"] and rec["plane"] and rec["external"]) or \
+                rec["degraded"] or rec["backend"] != "gloo":
+            raise AssertionError(f"{tag}: {rec}")
+        if [o["path"] for o in rec["ops"]] != ["device"] * P24_KM_ITERS or \
+                rec["stats"]["host_ops"] or rec["tiers"] != ["dense16"]:
+            raise AssertionError(f"{tag}: ops {rec['ops']}, {rec['stats']}, "
+                                 f"tiers {rec['tiers']}")
+        for it, o in enumerate(rec["ops"]):
+            if sum(o["counts"]) != MAIN_ROWS or (
+                    it < W3_KM_ITERS and o["counts"]
+                    != w3["oracle_counts"][it]):
+                raise AssertionError(f"{tag}: iteration {it + 1} counted "
+                                     f"{sum(o['counts'])} rows, or not phase "
+                                     f"17's counts")
+        if rec["launches"]["kmeans_stats_dense"] != P24_KM_ITERS:
+            raise AssertionError(f"{tag}: launches {rec['launches']}")
+    v3 = [np.asarray(rec["centroids"][str(W3_KM_ITERS)], np.float32)
+          for rec in kms]
+    p17 = np.asarray(w3["centroids"], np.float32)
+    if any(not np.array_equal(c, v3[0]) for c in v3) or not np.allclose(
+            v3[0], p17, rtol=SUM_RTOL, atol=SUM_ATOL):
+        raise AssertionError(f"phase 24 (c): version-{W3_KM_ITERS} centroids "
+                             f"off phase 17's by "
+                             f"{float(np.abs(v3[0] - p17).max())}")
+    ms = [o["ms"] for rec in kms for o in rec["ops"]]
+    log(f"    (c) k-means under Tracker({W3_RANKS}) "
+        f"(RABIT_TRACKER_PIN_RANKS=1) and torchrun's gloo group, mixed "
+        f"mode: {secs:.1f} s; every rank registered as its dist rank, "
+        f"{P24_KM_ITERS} stats allreduces on the external group (none "
+        f"degraded), each counting {MAIN_ROWS} rows, iterations 1-3 phase "
+        f"17's counts, version 3 within "
+        f"{float(np.abs(v3[0] - p17).max()):.3g} of phase 17's; the "
+        f"({K}, 257) stats op (synchronize to synchronize) median "
+        f"{statistics.median(ms):.3f} ms {[round(t, 3) for t in ms]}, phase "
+        f"23's on the engine's own group median "
+        f"{statistics.median(p23['stats_ms']):.3f} ms; B1 by rank "
+        f"{[rec['launches']['kmeans_stats_dense'] for rec in kms]}")
+    out["mixed_stats_ms"] = ms
+    out["kmeans_stats_dense"] = [rec["launches"]["kmeans_stats_dense"]
+                                 for rec in kms]
+    log(f"    phase 24 wall {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5243,6 +5875,15 @@ def main() -> int:
         if line["name"] == "gbdt_hist":
             line["phase23_launches_by_rank"] = p23["gbdt_hist"]
     log(f"    phase 23 took {time.perf_counter() - t0:.1f} s")
+
+    # 24. the linear learner at world 1 and under torchrun (adopt mode),
+    # and k-means under a tracker beside torchrun's group (mixed mode)
+    t0 = time.perf_counter()
+    p24 = phase24(torch, w3, p23)
+    for line in lines:
+        if line["name"] == "kmeans_stats_dense":
+            line["phase24_launches_by_rank"] = p24["kmeans_stats_dense"]
+    log(f"    phase 24 took {time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)
@@ -5263,6 +5904,10 @@ if __name__ == "__main__":
         sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase23-rank"]:
         sys.exit(device_plane_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase24-linear"]:
+        sys.exit(linear_rank(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase24-kmeans"]:
+        sys.exit(kmeans_mixed_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--phase22-rank"]:
         sys.exit(elastic_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-grow"]:

@@ -73,12 +73,16 @@ def tracker_print(msg: str) -> None:
 
 
 def allreduce(data, op: ReduceOp = SUM,
-              prepare_fun: Optional[Callable[[], None]] = None):
+              prepare_fun: Optional[Callable[[], None]] = None,
+              codec: bool = True):
     """Allreduce an array across all ranks.
 
     numpy input is reduced **in place** and returned; a tensor input is
     handed to the engine and its result returned.  ``prepare_fun`` is
     the lazy-preparation hook, skipped when a cached result is replayed.
+    ``codec=False`` is the reference's per-op opt-out of a lossy wire
+    codec; no codec is ported (ROADMAP A8), so every blocking op rides
+    the wire at full width and the flag changes no byte.
     """
     eng = _engine_mod.get_engine()
     if isinstance(data, np.ndarray):

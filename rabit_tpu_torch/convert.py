@@ -2,8 +2,9 @@
 
 The JAX package hands its parameters over as numpy arrays (a
 ``rabit_tpu.learn.kmeans.KMeansModel`` keeps its centroids as one; a
-``BoostedModel``'s trees unpack into one array per tree), so conversion
-checks shape and dtype and copies; nothing here imports the JAX package.
+``BoostedModel``'s trees unpack into one array per tree, a
+``LinearModel`` keeps its weights as one), so conversion checks shape
+and dtype and copies; nothing here imports the JAX package.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import numpy as np
 
 from rabit_tpu_torch.learn.boosting import BoostedModel, TreeNode
 from rabit_tpu_torch.learn.kmeans import KMeansModel
+from rabit_tpu_torch.learn.linear import (LOSS_LINEAR, LOSS_LOGISTIC,
+                                          LinearModel)
 
 # columns of one tree's (m, 6) array in boosted_from_jax
 TREE_COLUMNS = ("feature", "bin_threshold", "value", "left", "right",
@@ -99,3 +102,37 @@ def boosted_from_jax(cuts: np.ndarray, trees: list[np.ndarray],
                         base_score=float(base_score),
                         learning_rate=float(learning_rate), loss=loss,
                         has_missing=bool(has_missing))
+
+
+def linear_from_jax(weight: np.ndarray, base_score: float, num_feature: int,
+                    loss_type: int) -> LinearModel:
+    """A port :class:`LinearModel` from a JAX package ``LinearModel``'s
+    parts: ``weight`` its (num_feature + 1,) floating vector (the bias
+    last), ``base_score`` (already through the logit once trained),
+    ``num_feature`` and ``loss_type`` (0 linear, 1 logistic).
+
+    Raises ``TypeError`` for a weight vector that is not floating, and
+    ``ValueError`` for a shape other than (num_feature + 1,), a negative
+    ``num_feature``, an unknown loss type or a non-finite value.
+    """
+    if not isinstance(weight, np.ndarray) or not np.issubdtype(
+            weight.dtype, np.floating):
+        raise TypeError(f"weight must be a floating numpy array, got "
+                        f"{getattr(weight, 'dtype', type(weight).__name__)}")
+    if int(num_feature) != num_feature or num_feature < 0:
+        raise ValueError(f"num_feature must be an integer >= 0, got "
+                         f"{num_feature!r}")
+    if weight.shape != (int(num_feature) + 1,):
+        raise ValueError(f"weight must have shape ({int(num_feature) + 1},) "
+                         f"(num_feature + 1), got {weight.shape}")
+    if loss_type not in (LOSS_LINEAR, LOSS_LOGISTIC):
+        raise ValueError(f"loss_type must be {LOSS_LINEAR} (linear) or "
+                         f"{LOSS_LOGISTIC} (logistic), got {loss_type!r}")
+    if not (np.isfinite(weight).all() and np.isfinite(base_score)):
+        raise ValueError("weight and base_score must be finite")
+    model = LinearModel()
+    model.weight = np.array(weight, dtype=np.float64, copy=True)
+    model.base_score = float(base_score)
+    model.num_feature = int(num_feature)
+    model.loss_type = int(loss_type)
+    return model

@@ -50,12 +50,33 @@ formation barrier (``cmd=formbar``) and forms the group only when all
 have posted; an aborted barrier (a rank relaunched in the window) means
 a degraded start, re-formed at the first checkpoint boundary.
 
+**Adopt mode** (no tracker, ``torch.distributed``'s default group
+already initialised at world > 1, as ``torchrun`` or a caller's own
+``init_process_group`` leaves it): rank and world are the group's, the
+inner engine is :class:`EmptyEngine` (its in-memory checkpoints), and
+there is no host transport: numpy allreduce and allgather and byte
+broadcasts ride the default group too (CPU tensors on gloo, CUDA
+tensors on NCCL), numpy results copied back in place.  A peer's death
+raises :class:`RuntimeError` on the survivors' next collective; there
+is nothing to degrade to.
+
+**Mixed mode** (a tracker plus an externally initialised default
+group): the engine registers with ``task_id = dist.get_rank()`` unless
+a task id is given (with the tracker's ``RABIT_TRACKER_PIN_RANKS=1`` the
+two numberings then agree); the host engine keeps the control plane,
+numpy ops and the checkpoints, and tensors ride the external group.
+The engine does not own the external group, so it never re-forms it,
+never aborts it and skips the ordered teardown.  Whether the numberings line
+up is agreed at start: a world mismatch every rank can see degrades
+every rank with no collective; otherwise one flag a rank is all-gathered
+over the external group, and any misaligned rank degrades every rank for
+the whole job.  A relaunch comes up degraded for good and never joins
+that consensus.
+
 Left out, each raising :class:`NotImplementedError` that names its
-ROADMAP item: *adopt mode* (no tracker, ``torch.distributed`` already
-initialised at world > 1) and *mixed mode* (a tracker plus an
-externally initialised group), A5b; ``rabit_device_impl=pallas_ring``,
-the ring kernel across ranks, A7; the ``native`` inner engine, the
-``mpi`` CPU collectives, telemetry and tracing, A8.
+ROADMAP item: ``rabit_device_impl=pallas_ring``, the ring kernel across
+ranks, A7; the ``native`` inner engine, the ``mpi`` CPU collectives,
+telemetry and tracing, A8.
 """
 from __future__ import annotations
 
@@ -91,6 +112,10 @@ _DIST_OPS = {ReduceOp.MAX: dist.ReduceOp.MAX,
              ReduceOp.BITOR: dist.ReduceOp.BOR,
              ReduceOp.BITAND: dist.ReduceOp.BAND,
              ReduceOp.BITXOR: dist.ReduceOp.BXOR}
+# What a failed collective raises in adopt mode, where no host engine
+# could take the payload instead.
+_NO_HOST = ("xla engine: device collective failed and no host transport "
+            "is available (adopt mode)")
 _BITWISE = (ReduceOp.BITOR, ReduceOp.BITAND, ReduceOp.BITXOR)
 # The dtypes both backends reduce.
 _DEVICE_DTYPES = (torch.float16, torch.bfloat16, torch.float32,
@@ -182,6 +207,9 @@ class XLAEngine(Engine):
         self._device_epoch = 0
         self._init_timeout = 300.0
         self._svc_tracker_hosted = False
+        # adopt/mixed: the device plane is the caller's default group
+        self._adopted = False
+        self._no_host_transport = False     # adopt: no host engine at all
         # observable path counters (tests assert post-reform collectives
         # ride the device plane again, not the degraded host path)
         self.path_stats = {"device_ops": 0, "host_ops": 0, "backend": None}
@@ -235,21 +263,28 @@ class XLAEngine(Engine):
                     int(os.environ.get("RABIT_RELAUNCH", 0)))
         external = dist.is_available() and dist.is_initialized()
         if not uri:
-            if external and dist.get_world_size() > 1:
-                raise NotImplementedError(
-                    "adopt mode (no tracker, torch.distributed already "
-                    "initialised at world > 1) is not ported to "
-                    "rabit_tpu_torch yet (ROADMAP A5b)")
+            # No tracker: adopt whatever world torch.distributed already
+            # lives in (a single process, or torchrun's group).
             from rabit_tpu_torch.engine.empty import EmptyEngine
 
             self._inner = EmptyEngine()
             self._inner.init(params)
+            if external and dist.get_world_size() > 1:
+                self._rank = dist.get_rank()
+                self._world = dist.get_world_size()
+                self._adopted = self._no_host_transport = True
+                self._adopt_default_group()
             return
         if external:
-            raise NotImplementedError(
-                "mixed mode (a tracker plus an externally initialised "
-                "torch.distributed group) is not ported to rabit_tpu_torch "
-                "yet (ROADMAP A5b)")
+            # MIXED mode: register with task_id = the group's rank, so
+            # that with rank pinning the control-plane rank is the
+            # group's.  A presence test, not truthiness: an explicit
+            # task id of "0" must win.
+            has_tid = (params.get("rabit_task_id") is not None
+                       and str(params.get("rabit_task_id")) != "") or \
+                os.environ.get("RABIT_TASK_ID", "") != ""
+            if not has_tid:
+                params = dict(params, rabit_task_id=str(dist.get_rank()))
         self._inner = self._make_inner(params)
         self._inner.init(params)
         self._rank = self._inner.rank
@@ -270,6 +305,21 @@ class XLAEngine(Engine):
         except ValueError:
             self._init_timeout = 300
         if self._world <= 1:
+            return
+        if external:
+            # Set on EVERY life: a relaunch must skip _maybe_reform and
+            # the ordered teardown as the adopted survivors do, or its
+            # host-plane ops would have no partner.
+            self._adopted = True
+            self._log_stderr(
+                "MIXED mode: the tracker keeps the control plane, tensors "
+                "ride the externally initialised torch.distributed group, "
+                "which this engine never re-forms after a failure")
+            if trial > 0:
+                # the survivors' group no longer holds the previous life
+                self._degraded = True
+            else:
+                self._build_group_mixed()
             return
         if trial > 0:
             # Mid-job relaunch: the group of the first life died with
@@ -482,12 +532,69 @@ class XLAEngine(Engine):
             + (" (ranks share a card: gloo stages through host memory)"
                if shared else ""))
 
+    def _adopt_default_group(self) -> None:
+        """Take ``torch.distributed``'s default group as the device plane
+        (adopt and mixed modes): NCCL reduces CUDA tensors on the
+        current card, any other backend takes CPU tensors."""
+        backend = str(dist.get_backend())
+        self._group, self._backend = dist.group.WORLD, backend
+        self._device = (torch.device("cuda", torch.cuda.current_device())
+                        if backend == "nccl" else torch.device("cpu"))
+        self._member = True
+        self.path_stats["backend"] = backend
+        self._log_stderr(f"rank {self._rank} adopted the default "
+                         f"torch.distributed group: backend {backend}")
+
+    def _build_group_mixed(self) -> None:
+        """MIXED mode's start: agree, on every rank at once, whether the
+        control-plane ranks and the external group's line up.
+
+        A world mismatch every rank can see needs no agreement and must
+        not enter a collective (with a larger external world the extra
+        processes are still in tracker registration): every rank
+        degrades.  Otherwise each rank's "misaligned" flag is
+        all-gathered over the external group (rank-order independent, so
+        it works misaligned), never over the host plane, whose version
+        span 0 must hold no engine op; a relaunch never gets here.  Any
+        flag set degrades every rank for the whole job, rather than
+        leave the aligned ranks on a plane the others cannot join.  No
+        timeout of its own: a rank that gave up while its flag still
+        reached the others would split the world."""
+        if dist.get_world_size() != self._world:
+            self._degraded = True
+            self._log_stderr(
+                f"MIXED mode: the torch.distributed world "
+                f"({dist.get_world_size()}) differs from the tracker's "
+                f"({self._world}); running degraded on the host transport "
+                "for the whole job")
+            return
+        misaligned = dist.get_rank() != self._rank
+        self._adopt_default_group()
+        flag = torch.tensor([int(misaligned)], dtype=torch.int32,
+                            device=self._device)
+        parts = [torch.empty_like(flag) for _ in range(self._world)]
+        self._log_stderr("MIXED mode: entering the start consensus (an "
+                         "allgather on the external group)")
+        self._group.allgather([parts], [flag]).wait()
+        if not int(torch.cat(parts).max()):
+            return
+        self._drop_group()
+        self._degraded = True
+        self._log_stderr(
+            "MIXED mode: control-plane ranks and dist.get_rank() do not "
+            "line up on every rank"
+            + (f" (this rank: {self._rank} vs {dist.get_rank()})"
+               if misaligned else " (a peer's are misaligned)")
+            + "; running degraded on the host transport for the whole "
+            "job.  Launch with RABIT_TRACKER_PIN_RANKS=1 on the tracker")
+
     def _drop_group(self) -> None:
         """Tear down the current group: abort (or shut down) where the
         backend can, so peers blocked on this rank fail at once, then
-        drop the object and the store client."""
+        drop the object and the store client.  An adopted group is the
+        caller's: it is only forgotten."""
         group, self._group = self._group, None
-        if group is not None:
+        if group is not None and not self._adopted:
             for name in ("abort", "shutdown"):
                 fn = getattr(group, name, None)
                 if fn is None:
@@ -529,7 +636,7 @@ class XLAEngine(Engine):
               flush=True)
 
     def shutdown(self) -> None:
-        if self._world > 1 and self._inner is not None:
+        if self._world > 1 and self._inner is not None and not self._adopted:
             # Every rank joins both barriers — a relaunched incarnation
             # that never formed a group included — as the robust
             # engine's own shutdown consensus does; they wait for a
@@ -570,7 +677,7 @@ class XLAEngine(Engine):
 
         A failed re-formation (another death mid-reform) leaves every
         reachable rank degraded; the next checkpoint retries."""
-        if (self._world <= 1 or self._inner is None
+        if (self._world <= 1 or self._adopted or self._inner is None
                 or not self._reform_enabled):
             return
         flags = np.zeros(self._world, np.uint8)
@@ -658,12 +765,19 @@ class XLAEngine(Engine):
     # ------------------------------------------------------------------
     def allreduce(self, buf, op: ReduceOp,
                   prepare_fun: Optional[Callable[[], None]] = None):
-        """numpy: in place through the inner host engine.  A tensor: a
-        NEW tensor on the input's device holding the reduction; the
+        """numpy: in place through the inner host engine (in adopt mode
+        on the group, copied back).  A tensor: a NEW tensor on the input's device holding the reduction; the
         input is left as it was, so a device op that fails part way
         still has this rank's own contribution to send on the host
         plane."""
         if isinstance(buf, np.ndarray):
+            if self._no_host_transport and self._world > 1:
+                # adopt mode: reduce on the group, copy back in place
+                if prepare_fun is not None:
+                    prepare_fun()
+                out = self._tensor_op("allreduce", self._on_group(buf), op)
+                buf[...] = out.cpu().numpy()
+                return buf
             return self._inner.allreduce(buf, op, prepare_fun)
         check(isinstance(buf, torch.Tensor),
               "xla engine: allreduce expects a numpy array or a tensor")
@@ -671,33 +785,37 @@ class XLAEngine(Engine):
             prepare_fun()
         if self._world == 1:
             return buf
-        check_reduction(self._backend or "gloo", op, buf.dtype)
-        if self._degraded:
-            return self._host_degrade("allreduce", buf, op)
-        try:
-            return self._device_collective("allreduce", buf, op)
-        except Exception as e:  # noqa: BLE001 — filtered just below
-            if not _is_runtime_failure(e):
-                raise  # programming error, not a peer failure
-            return self._host_degrade("allreduce", buf, op, cause=e)
+        return self._tensor_op("allreduce", buf, op)
 
     def allgather(self, buf):
         if isinstance(buf, np.ndarray):
+            if self._no_host_transport and self._world > 1:
+                return self._tensor_op("allgather", self._on_group(buf),
+                                       ReduceOp.SUM).cpu().numpy()
             return self._inner.allgather(buf)
         check(isinstance(buf, torch.Tensor),
               "xla engine: allgather expects a numpy array or a tensor")
         if self._world == 1:
             return buf.unsqueeze(0).clone()
-        check_reduction(self._backend or "gloo", ReduceOp.SUM, buf.dtype)
+        return self._tensor_op("allgather", buf, ReduceOp.SUM)
+
+    def _on_group(self, buf: np.ndarray) -> torch.Tensor:
+        """A numpy buffer as a tensor on the adopted group's device."""
+        return torch.from_numpy(np.ascontiguousarray(buf)).to(self._device)
+
+    def _tensor_op(self, kind: str, buf: torch.Tensor,
+                   op: ReduceOp) -> torch.Tensor:
+        """A tensor collective at world > 1: on the device plane, or on
+        the host engine once degraded or after a runtime failure."""
+        check_reduction(self._backend or "gloo", op, buf.dtype)
         if self._degraded:
-            return self._host_degrade("allgather", buf, ReduceOp.SUM)
+            return self._host_degrade(kind, buf, op)
         try:
-            return self._device_collective("allgather", buf, ReduceOp.SUM)
+            return self._device_collective(kind, buf, op)
         except Exception as e:  # noqa: BLE001 — filtered just below
             if not _is_runtime_failure(e):
-                raise
-            return self._host_degrade("allgather", buf, ReduceOp.SUM,
-                                      cause=e)
+                raise  # programming error, not a peer failure
+            return self._host_degrade(kind, buf, op, cause=e)
 
     def allreduce_async(self, buf, op: ReduceOp,
                         prepare_fun: Optional[Callable[[], None]] = None,
@@ -705,10 +823,10 @@ class XLAEngine(Engine):
                         codec: bool = True) -> CollectiveHandle:
         """Async passthrough: numpy payloads ride the inner host
         engine's progress thread (overlap and bucket fusion, with its
-        replay semantics intact); tensors resolve synchronously on the
-        device plane."""
+        replay semantics intact); tensors, and every payload in adopt
+        mode, resolve synchronously on the device plane."""
         if (isinstance(buf, np.ndarray) and self._world > 1
-                and not self._degraded):
+                and not self._no_host_transport and not self._degraded):
             return self._inner.allreduce_async(buf, op, prepare_fun,
                                                fuse=fuse, codec=codec)
         return CollectiveHandle.resolved(
@@ -716,7 +834,7 @@ class XLAEngine(Engine):
 
     def allgather_async(self, buf) -> CollectiveHandle:
         if (isinstance(buf, np.ndarray) and self._world > 1
-                and not self._degraded):
+                and not self._no_host_transport and not self._degraded):
             return self._inner.allgather_async(buf)
         return CollectiveHandle.resolved(self.allgather(buf))
 
@@ -729,7 +847,10 @@ class XLAEngine(Engine):
         Tensor ops ride the host until the next checkpoint boundary
         re-forms the plane (or, with rabit_device_reform=0, to the
         end).  bfloat16 rides the host wire as float32, which numpy
-        has."""
+        has.  Adopt mode has no host engine: a failure raises
+        :class:`RuntimeError`."""
+        if self._no_host_transport:
+            raise RuntimeError(_NO_HOST) from cause
         if not self._degraded:
             self._degraded = True
             self._log_stderr(
@@ -768,7 +889,38 @@ class XLAEngine(Engine):
     # control plane delegation
     # ------------------------------------------------------------------
     def broadcast(self, data: Optional[bytes], root: int) -> bytes:
+        if self._no_host_transport and self._world > 1:
+            return self._device_byte_broadcast(data, root)
         return self._inner.broadcast(data, root)
+
+    def _device_byte_broadcast(self, data: Optional[bytes],
+                               root: int) -> bytes:
+        """Adopt mode's byte broadcast on the group: the length, then
+        the bytes, each one broadcast from ``root``."""
+        check(0 <= root < self._world, "broadcast: invalid root %d", root)
+        is_root = self._rank == root
+        check(not is_root or data is not None,
+              "broadcast: root rank must supply data")
+        n = torch.tensor([len(data) if is_root else 0], dtype=torch.int64,
+                         device=self._device)
+        self._group_broadcast(n, root)
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+               if is_root and data else
+               torch.zeros(int(n.item()), dtype=torch.uint8))
+        buf = buf.to(self._device)
+        if buf.numel():
+            self._group_broadcast(buf, root)
+        return buf.cpu().numpy().tobytes()
+
+    def _group_broadcast(self, t: torch.Tensor, root: int) -> None:
+        opts = dist.BroadcastOptions()
+        opts.rootRank = root
+        try:
+            self._group.broadcast([t], opts).wait()
+        except Exception as e:  # noqa: BLE001 — filtered just below
+            if not _is_runtime_failure(e):
+                raise
+            raise RuntimeError(_NO_HOST) from e
 
     def load_checkpoint(self):
         out = self._inner.load_checkpoint()

@@ -36,7 +36,7 @@
 //
 // Across cards the same fold reads its peers over NVLink; it then needs
 // one start barrier on system-scope flags so that every rank's input is
-// ready (ROADMAP.md A6).  Here the stream orders the inputs' writers before
+// ready (ROADMAP.md A7).  Here the stream orders the inputs' writers before
 // the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

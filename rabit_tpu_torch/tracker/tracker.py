@@ -1055,6 +1055,11 @@ class JobState:
             else:
                 self._assign_ranks(regs)
                 members = {r.task_id for r in regs}
+            # Membership is recorded BEFORE the first reply: a worker
+            # may die (and its death be reported) as soon as it holds
+            # its topology, and a death notice that found the old
+            # membership would be dropped, so no scale-down followed.
+            self._members = members
             by_rank = {self._rank_of[r.task_id]: r for r in regs}
             addr = {rk: (reg.host, reg.port) for rk, reg in by_rank.items()}
             groups = self._topo_groups(by_rank, world)
@@ -1102,7 +1107,6 @@ class JobState:
                     reg.sock.close()
                 except OSError:
                     pass
-            self._members = members
             self._journal()
         # Registrants still parked after ANY completed round open the
         # next epoch's target: joiners beyond max_workers, joiners that

@@ -167,8 +167,13 @@ def _replies(socks):
 
 
 def _round(t, cmds, job=P.DEFAULT_JOB, world=0):
-    return _replies({task: _register(t, task, cmd, job, world)
-                     for task, cmd in cmds.items()})
+    """One full round; returns once the tracker has recorded its
+    members (the reference's round records them after the last reply,
+    and a death reported before that is not a member's)."""
+    out = _replies({task: _register(t, task, cmd, job, world)
+                    for task, cmd in cmds.items()})
+    assert _wait(lambda: _job(t, job)._members == set(cmds))
+    return out
 
 
 def _poll(t, task="poll", version=0, job=P.DEFAULT_JOB):
@@ -288,6 +293,33 @@ def test_death_scales_down_liveness_first(signal_):
             _stop(t)
     assert _pair(scenario) == (
         True, {"0": (0, 2, 1), "2": (1, 2, 1)}, ["0", "2"], [])
+
+
+def test_death_reported_while_the_round_replies(monkeypatch):
+    """The port's tracker: a death reported between the round's last
+    reply and the end of its bookkeeping (the launcher saw the worker
+    exit as soon as it held its topology) still moves the target, so
+    the survivors' rescale lands at world 2."""
+    real_send = P.TopologyReply.send
+    sent = []
+
+    def send(reply, sock):
+        real_send(reply, sock)
+        sent.append(reply.rank)
+        if len(sent) == 3:
+            t.note_dead("1")
+    monkeypatch.setattr(P.TopologyReply, "send", send)
+    t = _start("torch", 3, min_workers=2)
+    try:
+        _round(t, {"0": P.CMD_START, "1": P.CMD_START, "2": P.CMD_START})
+        assert _poll(t)[1:] == (1, 2)
+        r2 = _round(t, {"0": P.CMD_RESCALE, "2": P.CMD_RESCALE})
+        assert {tid: (r.rank, r.world, r.epoch) for tid, r in r2.items()} \
+            == {"0": (0, 2, 1), "2": (1, 2, 1)}
+        lost, pend = _ordered(t, "1")
+        assert lost < pend
+    finally:
+        _stop(t)
 
 
 def test_death_completes_a_parked_recover_round():

@@ -401,19 +401,6 @@ def test_mpi_and_telemetry_are_refused():
     XLAEngine().init({"rabit_obs": "0"})
 
 
-@pytest.mark.parametrize("with_tracker", [False, True])
-def test_adopt_and_mixed_modes_are_refused(with_tracker, monkeypatch):
-    """A ``torch.distributed`` default group initialised by someone
-    else: adopt mode (no tracker, world > 1) and mixed mode (a tracker)
-    are ROADMAP A5b."""
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    params = ({"rabit_tracker_uri": "127.0.0.1", "rabit_tracker_port": 1}
-              if with_tracker else {})
-    with pytest.raises(NotImplementedError, match="A5b"):
-        XLAEngine().init(params)
-
-
 def test_pysocket_names_the_device_plane_engine():
     from rabit_tpu_torch.engine.pysocket import PySocketEngine
 
