@@ -47,10 +47,11 @@ Phases, each raising on failure (the script then exits non-zero):
     float64 ``index_add_``: equal to it on weights k/16, whose float32
     sums are exact, and their drift from it on normal weights printed;
 10. the GBDT main path: ``boosting.train`` on 2,097,152 rows x 64
-    features, 256 bins and a missing slot, depth 6, 2 rounds -- the
-    float32 kernel against the plain path, then the default bfloat16
-    kernel, with its launches counted against the level chunks and by
-    channel count (nw = 2 x the level's nodes);
+    features, 256 bins and a missing slot, depth 6, 2 rounds with the
+    default bfloat16 kernel, its launches counted against the level
+    chunks and by channel count (nw = 2 x the level's nodes); then one
+    round each with the float32 kernel and the plain path, held against
+    each other, both replaying the first run's binning;
 11. time the histogram kernel, its plain version and ``index_add_`` at
     every level's channel count (``index_add_`` at the widest over row
     chunks whose expanded source fits the card, summed), each beside its
@@ -243,9 +244,11 @@ Phases, each raising on failure (the script then exits non-zero):
     17's counts, centroids within 1e-3 of the plain loop (run here
     meanwhile) and, at version 3, within the float32 sum bar of phase
     17's; B1 launches by life [4], [2, 3], [4].  (b) ``boosting.train``
-    on phase 17's thirds, 2 rounds, float32 kernel, no fault: each
-    level's histograms in one device allreduce, the top three levels of
-    both trees phase 17's, log-loss within 1e-4.  (c) The engine's NCCL
+    on phase 17's thirds, 1 round, float32 kernel, no
+    fault: each level's histograms in one device allreduce, the tree's
+    top three levels phase 17's, log-loss within 1e-4.  (d) and (e): the
+    jobs of (a) and (b) again under ``rabit_device_impl=pallas_ring``
+    (see ``phase23``).  (c) The engine's NCCL
     ``new_group`` at world 1 on an in-process store, one allreduce of
     the (64, 257) stats (the only NCCL one card can run).  It prints the
     device allreduce ms for the stats and the largest level beside phase
@@ -284,7 +287,11 @@ Phases, each raising on failure (the script then exits non-zero):
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
 (``{"kernels": [...]}``), and ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits 1 and prints no result.  K-means data is
+Without a CUDA device it exits 1 and prints no result.  The rows of the
+world-3 phases are generated once a run and kept in the run's directory
+under ``TMPDIR`` for their rank processes (``cached``), which would
+otherwise each rebuild them from the seed in every life; the rank
+processes' bytecode is kept there too (``run_dir``).  K-means data is
 clustered so that every row's best centroid wins by a wide margin, and
 GBDT labels come from a planted tree whose splits win by wide margins:
 counts, assignments and the top splits are then compared exactly, and
@@ -292,6 +299,7 @@ summation order alone separates kernel and plain sums.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -303,6 +311,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -317,6 +326,8 @@ SMEM_BYTES_PER_CLOCK = 128        # an SM's shared memory, 32 banks x 4 B
 GBDT_ROWS, GBDT_FEATURES, GBDT_NBIN = 1 << 21, 64, 256
 # 2 rounds (4 until phase 24 was added): the script's time, not a width
 GBDT_DEPTH, GBDT_ROUNDS = 6, 2
+GBDT_CHECK_ROUNDS = 1              # phase 10's f32 kernel and plain path:
+                                   # their check is the first tree
 # float32 sums against the plain version: the JAX tests' own bar
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-3
 # final centroids (unit rows) of run() against the plain device loop
@@ -379,6 +390,91 @@ def clustered_ell(torch, n, d, nnz, k, seed):
     return cent, idx, val, valid
 
 
+def run_dir() -> str:
+    """The run's own directory under the temporary directory (``TMPDIR``):
+    ``data/`` keeps the generated rows of the world-3 phases
+    (:func:`cached`), ``pycache/`` the Python bytecode of every process
+    the script starts (``PYTHONPYCACHEPREFIX``; where the environment
+    says ``PYTHONDONTWRITEBYTECODE``, each rank process would compile
+    torch's modules anew).  Named to the children by ``CHIP_SMOKE_RUN``,
+    and removed when the script exits or receives SIGTERM, SIGINT or
+    SIGHUP."""
+    root = tempfile.mkdtemp(prefix="chip_smoke.")
+    os.makedirs(os.path.join(root, "data"))
+    os.environ["CHIP_SMOKE_RUN"] = root
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(root, "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    atexit.register(shutil.rmtree, root, True)
+
+    def removed(signum, _frame):
+        shutil.rmtree(root, True)
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+    for signum in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(signum, removed)
+    return root
+
+
+def cached(key, make):
+    """``make()``'s dict of arrays, made once a run: the rank processes of
+    phases 17-24 would rebuild the same rows from the same seed in every
+    life, so the first process to make them saves them in the run's
+    ``data/`` (:func:`run_dir`), one ``.npy`` file an array, and the
+    others map the same bytes copy-on-write, so that each reads the pages
+    it uses (a rank its third of the rows).  Each call appends its
+    seconds, made or mapped, to ``data/times.jsonl`` (:func:`cache_gain`)."""
+    root = os.path.join(os.environ["CHIP_SMOKE_RUN"], "data")
+    path = os.path.join(root, re.sub(r"[^A-Za-z0-9_.-]", "_", repr(key)))
+    t = time.perf_counter()
+    if os.path.isdir(path):
+        out = {name[:-4]: np.asarray(np.load(os.path.join(path, name),
+                                             mmap_mode="c"))
+               for name in os.listdir(path)}
+        how = "mapped"
+    else:
+        out, how = make(), "made"
+        tmp = f"{path}.{os.getpid()}.tmp"
+        os.mkdir(tmp)
+        for name, arr in out.items():
+            np.save(os.path.join(tmp, name + ".npy"), arr)
+        try:
+            os.rename(tmp, path)
+        except OSError:
+            # another process made the same set at the same time
+            if not os.path.isdir(path):
+                raise
+            shutil.rmtree(tmp)
+    line = json.dumps({"key": os.path.basename(path),
+                       how: time.perf_counter() - t})
+    with open(os.path.join(root, "times.jsonl"), "a") as f:
+        f.write(line + "\n")
+    return out
+
+
+def cache_gain() -> str:
+    """What :func:`cached` saved in this run: each set's making time (the
+    mean where several processes made it at once) against its maps."""
+    made, maps = {}, {}
+    with open(os.path.join(os.environ["CHIP_SMOKE_RUN"], "data",
+                           "times.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "made" in rec:
+                made.setdefault(rec["key"], []).append(rec["made"])
+            else:
+                maps.setdefault(rec["key"], []).append(rec["mapped"])
+    make_s = {k: statistics.mean(v) for k, v in made.items()}
+    n_maps = sum(map(len, maps.values()))
+    map_s = sum(map(sum, maps.values()))
+    saved = sum(make_s[k] * len(v) for k, v in maps.items()) - map_s
+    return (f"{len(made)} row sets made {sum(map(len, made.values()))} "
+            f"times ({', '.join(f'{s:.3f}' for s in make_s.values())} s "
+            f"each), mapped {n_maps} times in {map_s:.3f} s in all: making "
+            f"them anew at each map would have taken {saved:.3f} "
+            "process-seconds more, less the mapped pages' reads, which "
+            "fall in the phases (rank processes run side by side)")
+
+
 def sparse_clusters(n, d, nnz, k, seed, init_seed=0, picks=None):
     """A SparseMat of n clustered rows for kmeans.run: each cluster has
     16 signature features; a row puts 3/4 of its slots there and the
@@ -386,9 +482,25 @@ def sparse_clusters(n, d, nnz, k, seed, init_seed=0, picks=None):
     (the same numpy draws as init_centroids at world 1, or ``picks``,
     the global rows it seeds them from at a larger world) are given one
     cluster each, so no cluster starts with two centroids and no row
-    sits on a tie."""
+    sits on a tie.  The rows of a larger world (``picks`` given) are
+    made once a run (:func:`cached`)."""
     from rabit_tpu_torch.learn.data import SparseMat
 
+    def make():
+        return dict(zip(("idx", "val"), _cluster_slots(
+            n, d, nnz, k, seed, init_seed, picks)))
+
+    arrays = (make() if picks is None else cached(
+        ("sparse_clusters", n, d, nnz, k, seed, init_seed,
+         zlib.crc32(repr(list(picks)).encode())), make))
+    return SparseMat(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
+                     findex=arrays["idx"].reshape(-1),
+                     fvalue=arrays["val"].reshape(-1),
+                     labels=np.zeros(n, np.float32), feat_dim=d)
+
+
+def _cluster_slots(n, d, nnz, k, seed, init_seed, picks):
+    """:func:`sparse_clusters`' (n, nnz) feature indices and values."""
     rng = np.random.default_rng(seed)
     sig = np.stack([rng.choice(d, 16, replace=False) for _ in range(k)])
     label = rng.integers(0, k, n)
@@ -409,9 +521,7 @@ def sparse_clusters(n, d, nnz, k, seed, init_seed=0, picks=None):
         idx[lo:hi, n_sig:] = rng.integers(0, d, (m, nnz - n_sig))
         val[lo:hi, :n_sig] = 1.0 + rng.random((m, n_sig), np.float32)
         val[lo:hi, n_sig:] = 0.2 * rng.random((m, nnz - n_sig), np.float32)
-    return SparseMat(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
-                     findex=idx.reshape(-1), fvalue=val.reshape(-1),
-                     labels=np.zeros(n, np.float32), feat_dim=d)
+    return idx, val
 
 
 # --------------------------------------------------------------- checks
@@ -618,7 +728,14 @@ def gbdt_data(n, f, seed):
     """Uniform features in [-1, 1) and labels from a planted depth-3 tree
     on features 0-4 whose leaf rates lie far apart, so that the top three
     levels' splits win by wide margins; 2% NaN in each of the last 8
-    features (missing values, none on a planted feature)."""
+    features (missing values, none on a planted feature).  Made once a
+    run (:func:`cached`)."""
+    out = cached(("gbdt_data", n, f, seed),
+                 lambda: dict(zip("xy", _gbdt_arrays(n, f, seed))))
+    return out["x"], out["y"]
+
+
+def _gbdt_arrays(n, f, seed):
     rng = np.random.default_rng(seed)
     x = rng.random((n, f), dtype=np.float32) * 2 - 1
     left = x[:, 0] < 0.1
@@ -863,8 +980,45 @@ def gbdt_kernel_checks(torch, hk):
     return bins_t, errs
 
 
+class BinningReplay:
+    """``quantile_cuts`` and ``apply_cuts`` for runs of ``boosting.train``
+    on the same rows: the first run's calls compute, later runs' calls on
+    the same array (and cuts) return what they returned.  The binning is
+    host numpy work that takes the same input and gives the same bins in
+    every run, so phase 10's three runs bin once.  An array is known by
+    its object, which is held here so that its id stays its own."""
+
+    def __init__(self, cuts_fn, apply_fn):
+        self._fns = cuts_fn, apply_fn
+        self._cuts, self._bins, self._held = {}, {}, []
+        self.replays = 0
+
+    def cuts(self, values, nbin):
+        key = (id(values), nbin)
+        if key in self._cuts:
+            self.replays += 1
+        else:
+            self._held.append(values)
+            self._cuts[key] = self._fns[0](values, nbin)
+        return self._cuts[key]
+
+    def apply(self, values, cuts):
+        hit = self._bins.get(id(values))
+        if hit is not None and np.array_equal(hit[0], cuts):
+            self.replays += 1
+            return hit[1]
+        self._held.append(values)
+        bins = self._fns[1](values, cuts)
+        self._bins[id(values)] = (np.array(cuts), bins)
+        return bins
+
+
 def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
-    """Phase 10: boosting.train on the card, three ways."""
+    """Phase 10: boosting.train on the card, three ways: the bfloat16
+    kernel (the main path, ``GBDT_ROUNDS`` rounds, its binning timed in
+    place), then the float32 kernel and the plain path
+    (``GBDT_CHECK_ROUNDS``), which replay its binning
+    (:class:`BinningReplay`)."""
     from rabit_tpu_torch.learn import boosting as gb
     from rabit_tpu_torch.learn import histogram as bh
 
@@ -872,15 +1026,18 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
     t0 = time.perf_counter()
     x, y = gbdt_data(n, f, seed=11)
     log(f"[10] GBDT main path: n={n} f={f} nbin={GBDT_NBIN} (+1 missing "
-        f"slot) depth={GBDT_DEPTH} rounds={GBDT_ROUNDS} logistic (data "
+        f"slot) depth={GBDT_DEPTH} rounds={GBDT_ROUNDS} (f32 kernel and "
+        f"plain {GBDT_CHECK_ROUNDS}) logistic (data "
         f"{time.perf_counter() - t0:.1f} s)")
     chunk = hk.max_channels(GBDT_NBIN + 1, f) // 2
     runs = {}
     real = hk.hist_fused_multi
     real_cuts, real_apply = bh.quantile_cuts, gb.apply_cuts
-    for label, kw in (("f32 kernel", dict(compute_dtype="float32")),
-                      ("plain", dict(use_kernel=False)),
-                      ("bf16 kernel", {})):
+    replay = BinningReplay(real_cuts, real_apply)
+    for label, kw, num_round in (
+            ("bf16 kernel", {}, GBDT_ROUNDS),
+            ("f32 kernel", dict(compute_dtype="float32"), GBDT_CHECK_ROUNDS),
+            ("plain", dict(use_kernel=False), GBDT_CHECK_ROUNDS)):
         events, stamps, widths = [], [], []
         # train()'s round-0 binning, timed in place; its bins are kept
         binning = dict(s=0.0)
@@ -890,7 +1047,7 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
                 t = time.perf_counter()
                 out = fn(*a, **k)
                 binning["s"] += time.perf_counter() - t
-                if fn is real_apply:
+                if fn == replay.apply:
                     binning["bins"] = out
                 return out
             return call
@@ -914,13 +1071,14 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
             commit(model)
 
         hk.hist_fused_multi, rabit_tpu_torch.checkpoint = timed, stamped
-        bh.quantile_cuts, gb.apply_cuts = binned(real_cuts), binned(real_apply)
+        bh.quantile_cuts = binned(replay.cuts)
+        gb.apply_cuts = binned(replay.apply)
         for counts in (kk.LAUNCHES, hk.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         t1 = time.perf_counter()
         try:
-            model = gb.train(x, y, num_round=GBDT_ROUNDS,
+            model = gb.train(x, y, num_round=num_round,
                              max_depth=GBDT_DEPTH, nbin=GBDT_NBIN, **kw)
             torch.cuda.synchronize()
         finally:
@@ -969,16 +1127,24 @@ def gbdt_main_path(torch, rabit_tpu_torch, kk, hk):
     if any(b >= a for a, b in zip(k16["losses"], k16["losses"][1:])):
         raise AssertionError(f"bf16 kernel: log-loss did not fall every "
                              f"round: {k16['losses']}")
-    if abs(k16["acc"] - k32["acc"]) > 0.005:
-        raise AssertionError(f"bf16 kernel accuracy {k16['acc']:.4f} vs "
-                             f"{k32['acc']:.4f} (bar 0.5 points)")
+    # the accuracy after the rounds the f32 run took
+    acc16 = round_losses(dataclasses.replace(
+        k16["model"], trees=k16["model"].trees[:GBDT_CHECK_ROUNDS]),
+        k16["bins"], y)[1]
+    if abs(acc16 - k32["acc"]) > 0.005:
+        raise AssertionError(f"bf16 kernel accuracy {acc16:.4f} vs "
+                             f"{k32['acc']:.4f} after {GBDT_CHECK_ROUNDS} "
+                             "round(s) (bar 0.5 points)")
     log(f"    bf16 kernel: finite trees, log-loss falls every round, "
-        f"accuracy {k16['acc']:.4f} vs f32 {k32['acc']:.4f}")
+        f"accuracy {acc16:.4f} vs f32 {k32['acc']:.4f} after "
+        f"{GBDT_CHECK_ROUNDS} round(s), {k16['acc']:.4f} after "
+        f"{GBDT_ROUNDS}")
     log(f"    bf16 kernel launches by channel count nw: "
         f"{dict(sorted(k16['by_nw'].items()))}")
     return dict(launches=k16["launches"], wall=k16["wall"],
                 rounds=k16["rounds"], b3_ms=k16["b3_ms"],
                 binning_s=k16["binning_s"], plain_wall=plain["wall"],
+                replays=replay.replays,
                 f32_wall=k32["wall"], bins=k16["bins"], by_nw=k16["by_nw"])
 
 
@@ -1090,7 +1256,9 @@ def gbdt_timing(torch, hk, bins_t, errs, gbdt):
         f"{bins_up_s:.3f} s, {levels} levels x {level_up_s * 1e3:.1f} ms), "
         f"B3 calls {b3:.3f} s ({100 * b3 / wall:.1f}% of train()), the rest "
         f"(numpy tree work, masks) {rest:.2f} s; plain path train() "
-        f"{gbdt['plain_wall']:.2f} s, f32 kernel {gbdt['f32_wall']:.2f} s")
+        f"{gbdt['plain_wall']:.2f} s, f32 kernel {gbdt['f32_wall']:.2f} s "
+        f"for {GBDT_CHECK_ROUNDS} round(s) (both replay the bf16 run's "
+        f"binning: {gbdt['replays']} calls)")
     gap = sum(v["launches"] * (v["ms"] - v["bound_ms"])
               for v in by_nw.values())
     log(f"    B3 launches x (ms - bound) summed over the levels of train(): "
@@ -4358,6 +4526,13 @@ P23_B1_LIVES = {0: [4], 1: [2, 3], 2: [4]}
 P23_STATS_BYTES = K * 257 * 4      # 65,792 B
 P23_LEVEL_BYTES = 32 * GBDT_FEATURES * (GBDT_NBIN + 1) * 2 * 4  # 4,210,688 B
 P23_STEADY_REPS = 20               # back-to-back ops a size and device
+# (d) and (e): pallas_ring, B4 across the three rank processes; (d)'s gate
+# lets the stats through, (e) keeps the default 1 MiB, so a level's
+# histogram of 64 x 257 x nw float32 takes the ring from nw = 16 on
+P23_RING_MIN_BYTES = {"kmeans": 4096, "gbdt": 1 << 20}
+P23_GB_ROUNDS = 1                  # (b)'s and (e)'s rounds: one each, to
+                                   # hold the script's time (a tree has all
+                                   # its levels, the ring's three among them)
 
 
 def device_plane_rank(which, out_dir):
@@ -4366,15 +4541,21 @@ def device_plane_rank(which, out_dir):
     port's ``launch_local.launch``: ``rabit_engine="xla"`` over
     ``pyrobust``, phase 17's job on its third of phase 17's rows —
     ``kmeans.run`` on the dense16 tier (B1), ``P23_ITERS`` iterations,
-    or ``boosting.train`` with the float32 kernel (B3).  Each tensor
-    allreduce is timed between two synchronizes and recorded with its
-    path (device plane or degraded host), each re-formation with its
-    time; k-means' rank 1 SIGKILLs itself in its first life entering
-    the device allreduce at version ``P23_KILL_VERSION``.  After
-    k-means, each rank times ``P23_STEADY_REPS`` allreduces back to back
-    at the stats' and the largest level's sizes, on CUDA and on CPU
-    tensors.  A life writes its record to DIR (also just before the
-    kill)."""
+    or ``boosting.train`` with the float32 kernel (B3); WHICH
+    ``kmeans-ring`` or ``gbdt-ring`` runs the same job under
+    ``rabit_device_impl=pallas_ring`` with ``P23_RING_MIN_BYTES`` (GBDT
+    for ``P23_GB_ROUNDS``).  Each
+    tensor allreduce is timed between two synchronizes and recorded with
+    its path (the ring, the group, or the degraded host) and, on the
+    ring, its start barrier's wait and whether the table grew for it;
+    each re-formation with its time and its ring table's.  Every ring op
+    keeps its input and result in DIR/bits for the parent's bit check.  k-means' rank 1 SIGKILLs itself in its first
+    life entering the device allreduce at version ``P23_KILL_VERSION``.
+    After k-means, each rank times ``P23_STEADY_REPS`` allreduces back
+    to back at the stats' and the largest level's sizes, on CUDA and (in
+    (a)) on CPU tensors.  A life writes its record to DIR (also just
+    before the kill)."""
+    task, _, ring = which.partition("-")
     marks = {}
     import torch
 
@@ -4392,11 +4573,15 @@ def device_plane_rank(which, out_dir):
     from rabit_tpu_torch.ops import SUM
     from rabit_tpu_torch.ops import histogram_kernel as hk
     from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.ops import ring_allreduce as rg
     from rabit_tpu_torch.parallel.mesh import local_data_slice
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    ring_kw = (dict(rabit_device_impl="pallas_ring",
+                    rabit_pallas_min_bytes=P23_RING_MIN_BYTES[task])
+               if ring else {})
     rabit_tpu_torch.init(rabit_engine="xla", rabit_inner_engine="pyrobust",
-                         rabit_timeout_sec=W3_TIMEOUT)
+                         rabit_timeout_sec=W3_TIMEOUT, **ring_kw)
     marks["init"] = since_start()
     eng = engine_mod.get_engine()
     rank = eng.rank
@@ -4405,11 +4590,14 @@ def device_plane_rank(which, out_dir):
                engine=type(eng).__name__, degraded_at_init=eng._degraded,
                plane=engine_mod.is_device_plane(), marks=marks, ops=[],
                reforms=[], tiers=[], centroids={}, done=False,
-               t0=_STARTED[0])
+               t0=_STARTED[0], ring_form_ms=eng.ring_form_ms, bits=[])
     path = os.path.join(out_dir, f"{which}.{rank}.{relaunch}.json")
+    bits_dir = os.path.join(out_dir, "bits")
+    os.makedirs(bits_dir, exist_ok=True)
 
     def dump():
-        rec["launches"] = dict(kk.LAUNCHES, **hk.LAUNCHES)
+        rec["launches"] = dict(kk.LAUNCHES, **hk.LAUNCHES, **rg.LAUNCHES)
+        rec.setdefault("ring_launches", rg.LAUNCHES["ring_allreduce"])
         rec["stats"] = dict(eng.path_stats)
         rec["epoch"] = eng.device_epoch
         with open(path, "w") as f:
@@ -4422,23 +4610,33 @@ def device_plane_rank(which, out_dir):
         if not isinstance(buf, torch.Tensor):
             return real["allreduce"](buf, op, prepare_fun)
         version = eng.version_number
-        if (which == "kmeans" and rank == 1 and relaunch == 0
+        if (task == "kmeans" and rank == 1 and relaunch == 0
                 and version == P23_KILL_VERSION):
             marks["killed"] = since_start()
             dump()
             os.kill(os.getpid(), signal.SIGKILL)
         before = eng.path_stats["device_ops"]
+        b4 = rg.LAUNCHES["ring_allreduce"]
+        grown = eng._ring.grown if eng._ring is not None else 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = real["allreduce"](buf, op, prepare_fun)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
+        route = ("ring" if rg.LAUNCHES["ring_allreduce"] > b4 else
+                 "device" if eng.path_stats["device_ops"] > before else
+                 "host")
         op_rec = dict(version=version,
                       bytes=buf.numel() * buf.element_size(), ms=dt * 1e3,
-                      on=out.device.type,
-                      path=("device" if eng.path_stats["device_ops"] > before
-                            else "host"))
-        if which == "kmeans":
+                      on=out.device.type, path=route)
+        if route == "ring":
+            key = (eng.device_epoch, eng._ring.seq)
+            op_rec.update(wait_ms=eng._ring.last_wait_s * 1e3, key=key,
+                          grew=eng._ring.grown - grown)
+            rec["bits"].append(key)
+            torch.save(dict(x=buf.cpu(), out=out.cpu()), os.path.join(
+                bits_dir, f"{which}.{key[0]}.{key[1]}.{rank}.pt"))
+        if task == "kmeans":
             op_rec["counts"] = out[:, -1].tolist()
         rec["ops"].append(op_rec)
         return out
@@ -4454,11 +4652,12 @@ def device_plane_rank(which, out_dir):
             rec["reforms"].append(dict(
                 version=eng.version_number, epoch=eng.device_epoch,
                 ms=(time.perf_counter() - t) * 1e3,
-                degraded=eng._degraded, backend=eng.backend))
+                degraded=eng._degraded, backend=eng.backend,
+                ring=eng._ring is not None, ring_ms=eng.ring_form_ms))
     eng.allreduce = allreduce
     eng._host_degrade = host_degrade
     eng._maybe_reform = maybe_reform
-    if which == "kmeans":
+    if task == "kmeans":
         data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
                                picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
         shard = _shard_rows(data, local_data_slice(rank, W3_RANKS,
@@ -4483,21 +4682,27 @@ def device_plane_rank(which, out_dir):
         rabit_tpu_torch.checkpoint = checkpoint
         km.run(shard, K, P23_ITERS, compute_dtype="bfloat16")
         torch.cuda.synchronize()
+        rec["ring_launches"] = rg.LAUNCHES["ring_allreduce"]
         # the steady cost of one op, back to back (the first op of each
-        # size absorbs the ranks' skew), on CUDA and on CPU tensors
-        rec["steady"] = {}
+        # size absorbs the ranks' skew), on CUDA and on CPU tensors; on
+        # the ring, also its start barrier's waits
+        rec["steady"], rec["steady_wait"] = {}, {}
         for nbytes in (P23_STATS_BYTES, P23_LEVEL_BYTES):
-            for dev in ("cuda", "cpu"):
+            # the ring job's CPU tensors ride gloo as in (a)
+            for dev in ("cuda",) if ring else ("cuda", "cpu"):
                 x = torch.ones(nbytes // 4, device=dev)
                 real["allreduce"](x, SUM)
-                times = []
+                times, waits = [], []
                 for _ in range(P23_STEADY_REPS):
                     torch.cuda.synchronize()
                     t = time.perf_counter()
                     real["allreduce"](x, SUM)
                     torch.cuda.synchronize()
                     times.append((time.perf_counter() - t) * 1e3)
+                    if eng._ring is not None and dev == "cuda":
+                        waits.append(eng._ring.last_wait_s * 1e3)
                 rec["steady"][f"{dev} {nbytes}"] = times
+                rec["steady_wait"][f"{dev} {nbytes}"] = waits
     else:
         x_all, y_all = gbdt_data(GBDT_ROWS, GBDT_FEATURES, seed=11)
         s = local_data_slice(rank, W3_RANKS, GBDT_ROWS)
@@ -4511,9 +4716,11 @@ def device_plane_rank(which, out_dir):
             marks["staged"] = since_start()
             return bins[-1]
         gb.apply_cuts = keep_bins
-        model = gb.train(x, y, num_round=W3_GB_ROUNDS, max_depth=GBDT_DEPTH,
-                         nbin=GBDT_NBIN, **W3_GB_KW["f32 kernel"])
+        model = gb.train(x, y, num_round=P23_GB_ROUNDS,
+                         max_depth=GBDT_DEPTH, nbin=GBDT_NBIN,
+                         **W3_GB_KW["f32 kernel"])
         torch.cuda.synchronize()
+        rec["ring_launches"] = rg.LAUNCHES["ring_allreduce"]
         losses, _acc, _pred = round_losses(model, bins[0], y)
         chunk = hk.max_channels(GBDT_NBIN + 1, GBDT_FEATURES) // 2
         rec.update(rows=len(y), loss_sums=[v * len(y) for v in losses],
@@ -4540,8 +4747,10 @@ def _p23_lives(out_dir, which):
     return lives
 
 
-def _p23_kmeans(lives, w3, oracle):
-    """Phase 23 (a)'s checks; returns the figures it prints."""
+def _p23_kmeans(lives, w3, oracle, route="device"):
+    """Phase 23 (a)'s checks, and (d)'s with ``route="ring"`` (the stats
+    ops that (a) runs on the group run on the ring, one B4 launch
+    each); returns the figures it prints."""
     if sorted(lives) != [0, 1, 2] or [len(lives[r]) for r in range(3)] != \
             [1, 2, 1]:
         raise AssertionError(f"phase 23 k-means: lives "
@@ -4551,8 +4760,13 @@ def _p23_kmeans(lives, w3, oracle):
         for life, r in enumerate(recs):
             tag = f"phase 23 k-means rank {rank} life {life + 1}"
             paths = [o["path"] for o in r["ops"]]
-            if paths != P23_PATHS[rank][life]:
+            want = [route if p == "device" else p
+                    for p in P23_PATHS[rank][life]]
+            if paths != want:
                 raise AssertionError(f"{tag}: paths {paths}")
+            if r["ring_launches"] != paths.count("ring"):
+                raise AssertionError(f"{tag}: {r['ring_launches']} B4 "
+                                     f"launches for paths {paths}")
             if any(o["bytes"] != P23_STATS_BYTES or o["on"] != "cuda"
                    for o in r["ops"]):
                 raise AssertionError(f"{tag}: ops {r['ops']}")
@@ -4583,8 +4797,8 @@ def _p23_kmeans(lives, w3, oracle):
                         f"{r['epoch']}, tiers {r['tiers']} (the ranks share "
                         "the card: gloo; one reform; staged, re-staged once)")
                 if [(f["version"], f["epoch"], f["degraded"],
-                     f["backend"]) for f in r["reforms"]] != \
-                        [(2, 1, False, "gloo")]:
+                     f["backend"], f["ring"]) for f in r["reforms"]] != \
+                        [(2, 1, False, "gloo", route == "ring")]:
                     raise AssertionError(f"{tag}: reforms {r['reforms']}")
                 if r["stats"]["host_ops"] != 1:
                     raise AssertionError(f"{tag}: {r['stats']}")
@@ -4606,6 +4820,209 @@ def _p23_kmeans(lives, w3, oracle):
     return err, float(np.abs(v3 - p17).max())
 
 
+def _p23_same_bits(torch, a, b) -> bool:
+    width = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(width), b.contiguous().view(width))
+
+
+def _p23_bits(torch, tmp, which):
+    """The bit check across the rank processes: every ring op that all
+    three ranks kept (by device epoch and the table's op number) gives
+    the three ranks the same bits, and those are the bits of
+    ``ring_allreduce_p2p`` over the three inputs on the card (B4 on one
+    card) and of ``_ring_plain`` on the CPU (the hops in plain
+    PyTorch).  Returns the ops checked, as (key, bytes)."""
+    from rabit_tpu_torch.ops import ring_allreduce as rg
+
+    bdir = os.path.join(tmp, "bits")
+    kept = {}
+    for name in os.listdir(bdir):
+        if name.startswith(which + "."):
+            _, epoch, seq, rank, _ = name.split(".")
+            kept.setdefault((int(epoch), int(seq)), {})[int(rank)] = \
+                torch.load(os.path.join(bdir, name))
+    full = sorted(k for k, v in kept.items()
+                  if sorted(v) == list(range(W3_RANKS)))
+    if len(full) < 2:
+        raise AssertionError(f"phase 23 {which}: ring ops kept by every "
+                             f"rank {full} of {sorted(kept)}")
+    for key in full:
+        recs = [kept[key][r] for r in range(W3_RANKS)]
+        xs = [r["x"] for r in recs]
+        card = rg.ring_allreduce_p2p([x.cuda() for x in xs])
+        torch.cuda.synchronize()
+        plain = rg._ring_plain(xs)
+        for r, rec in enumerate(recs):
+            for what, want in (("rank 0's", recs[0]["out"]),
+                               ("ring_allreduce_p2p's", card[r].cpu()),
+                               ("_ring_plain's", plain[r])):
+                if not _p23_same_bits(torch, rec["out"], want):
+                    raise AssertionError(
+                        f"phase 23 {which}: op {key} on rank {r} differs "
+                        f"from {what} bits")
+    return [(key, kept[key][0]["x"].numel() * kept[key][0]["x"].element_size())
+            for key in full]
+
+
+def _p23_ring(torch, w3, oracle, tmp, steady_a):
+    """Phase 23 (d) and (e): the jobs of (a) and (b) under
+    ``rabit_device_impl=pallas_ring``, B4 across the three rank
+    processes through CUDA IPC inboxes and the host start barrier; (e)
+    runs ``P23_GB_ROUNDS`` round.  Returns B4's launches by job,
+    rank and life, and the ring's times."""
+    from rabit_tpu_torch.learn.boosting import TreeNode
+
+    # (d) k-means, the stats on the ring, rank 1 SIGKILLed as in (a)
+    code, d_secs = _launch_ranks("23", "kmeans-ring", tmp, max_restarts=1,
+                                 heartbeat_sec=P23_HEARTBEAT_SEC)
+    if code != 0:
+        raise AssertionError(f"phase 23 kmeans-ring: the launcher returned "
+                             f"{code}")
+    lives = _p23_lives(tmp, "kmeans-ring")
+    err, err17 = _p23_kmeans(lives, w3, oracle, route="ring")
+    d_keys = _p23_bits(torch, tmp, "kmeans-ring")
+    dead = lives[1][0]
+    death = dead["t0"] + dead["marks"]["killed"]
+    degrade = [lives[r][0]["t0"] + lives[r][0]["marks"]["degrade"] - death
+               for r in (0, 2)]
+    finals = [lives[r][-1] for r in (0, 1, 2)]
+    ring_ops = [o for r in (0, 1, 2) for life in lives[r] for o in life["ops"]
+                if o["path"] == "ring"]
+    loop_ms = [o["ms"] for o in ring_ops]
+    loop_wait = [o["wait_ms"] for o in ring_ops]
+    form_ms = [lives[r][0]["ring_form_ms"] for r in (0, 2)] + \
+        [lives[1][0]["ring_form_ms"]]
+    reform_ring_ms = [f["reforms"][0]["ring_ms"] for f in finals]
+    steady = {key: statistics.median(t for f in finals
+                                     for t in f["steady"][key])
+              for key in finals[0]["steady"]}
+    waits = {key: statistics.median(t for f in finals
+                                    for t in f["steady_wait"][key])
+             for key in finals[0]["steady_wait"]
+             if finals[0]["steady_wait"][key]}
+    stats_key, level_key = (f"cuda {P23_STATS_BYTES}",
+                            f"cuda {P23_LEVEL_BYTES}")
+    # the whole op's bound, as phase 12's: every rank's input read once
+    # and every rank's result written once, or the adds, on one card
+    bound = {key: 1e3 * max(2 * W3_RANKS * nbytes / HBM_BYTES_PER_S,
+                            (W3_RANKS - 1) * nbytes / 4 / F32_ADDS_PER_S)
+             for key, nbytes in ((stats_key, P23_STATS_BYTES),
+                                 (level_key, P23_LEVEL_BYTES))}
+    b4_d = {str(r): [x["ring_launches"] for x in v] for r, v in lives.items()}
+    log(f"    (d) k-means under pallas_ring (rabit_pallas_min_bytes="
+        f"{P23_RING_MIN_BYTES['kmeans']}): launcher returned 0 in "
+        f"{d_secs:.1f} s; iteration 1's stats on the ring (B4 across the "
+        f"three processes), rank 1 SIGKILLed entering iteration 2's: the "
+        f"survivors left the start barrier and degraded +{degrade[0]:.3f} "
+        f"s / +{degrade[1]:.3f} s after the death, the relaunch came up "
+        f"degraded, checkpoint 2 re-formed the plane and built a new "
+        f"table, iterations 3-4 on the ring; counts and centroids as (a) "
+        f"(within {err:.3g} of the plain loop, version 3 within "
+        f"{err17:.3g} of phase 17's); B4 by rank and life {b4_d}; ring ops "
+        f"{[k for k, _ in d_keys]} (device epoch, op) bit-identical on the "
+        f"three ranks and to ring_allreduce_p2p and _ring_plain over their "
+        f"inputs")
+    log(f"    (d) the ring's table: formation (one allgather of the IPC "
+        f"handles over the group) {[round(t, 3) for t in form_ms]} ms by "
+        f"rank at start, {[round(t, 3) for t in reform_ring_ms]} ms at "
+        f"the reform; the stats op on the ring in the loop "
+        f"{[round(t, 3) for t in loop_ms]} ms (synchronize to "
+        f"synchronize), of which the start barrier's wait "
+        f"{[round(t, 3) for t in loop_wait]} ms")
+    log(f"    (d) back to back, {P23_STEADY_REPS} ops a size (median over "
+        f"the ranks): the ring {steady[stats_key]:.3f} ms "
+        f"({P23_STATS_BYTES} B; barrier wait {waits[stats_key]:.3f} ms) "
+        f"and {steady[level_key]:.3f} ms ({P23_LEVEL_BYTES} B; wait "
+        f"{waits[level_key]:.3f} ms), against gloo on CUDA tensors in (a) "
+        f"{steady_a[stats_key]:.3f} ms and {steady_a[level_key]:.3f} ms; "
+        f"bound {bound[stats_key]:.5f} and {bound[level_key]:.5f} ms "
+        f"(bytes)")
+
+    # (e) GBDT under pallas_ring at the default gate, no fault
+    code, e_secs = _launch_ranks("23", "gbdt-ring", tmp,
+                                 heartbeat_sec=P23_HEARTBEAT_SEC)
+    if code != 0:
+        raise AssertionError(f"phase 23 gbdt-ring: the launcher returned "
+                             f"{code}")
+    glives = _p23_lives(tmp, "gbdt-ring")
+    ranks = [glives[r][0] for r in range(W3_RANKS)]
+    want_top = [top_levels([TreeNode(*n) for n in t], 3)
+                for t in w3["f32_trees"][:P23_GB_ROUNDS]]
+    gate = P23_RING_MIN_BYTES["gbdt"]
+    for g in ranks:
+        tag = f"phase 23 gbdt-ring rank {g['rank']}"
+        paths = [o["path"] for o in g["ops"]]
+        want = ["ring" if o["bytes"] >= gate else "device" for o in g["ops"]]
+        levels = sum(sum(1 for c in lc if c) for lc in g["level_chunks"])
+        if paths != want or len(paths) != levels or \
+                not {"ring", "device"} <= set(paths) or \
+                g["stats"]["host_ops"]:
+            raise AssertionError(f"{tag}: paths {paths} for {levels} "
+                                 f"levels, {g['stats']}")
+        if g["ring_launches"] != paths.count("ring"):
+            raise AssertionError(f"{tag}: {g['ring_launches']} B4 launches "
+                                 f"for paths {paths}")
+        if g["launches"]["gbdt_hist"] != sum(map(sum, g["level_chunks"])):
+            raise AssertionError(f"{tag}: B3 launches {g['launches']}")
+        top = [top_levels([TreeNode(*n) for n in t], 3) for t in g["trees"]]
+        if top != want_top:
+            raise AssertionError(f"{tag}: top levels {top} vs phase 17's "
+                                 f"{want_top}")
+    n = sum(g["rows"] for g in ranks)
+    losses = [sum(g["loss_sums"][i] for g in ranks) / n
+              for i in range(P23_GB_ROUNDS)]
+    rel = max(abs(a - b) / b for a, b in zip(losses, w3["f32_losses"]))
+    if rel > 1e-4:
+        raise AssertionError(f"phase 23 gbdt-ring: log-loss {losses} vs "
+                             f"phase 17's {w3['f32_losses']}")
+    e_keys = _p23_bits(torch, tmp, "gbdt-ring")
+    ring_sizes = sorted({o["bytes"] for o in ranks[0]["ops"]
+                         if o["path"] == "ring"})
+    if sorted(b for _, b in e_keys) != ring_sizes or \
+            P23_LEVEL_BYTES not in ring_sizes:
+        raise AssertionError(f"phase 23 gbdt-ring: bit-checked ops {e_keys} "
+                             f"for ring levels of {ring_sizes} B")
+    by_size, ring_by_rank = {}, {}
+    for g in ranks:
+        for o in g["ops"]:
+            by_size.setdefault((o["path"], o["bytes"]), []).append(o["ms"])
+            if o["path"] == "ring":
+                ring_by_rank.setdefault(o["bytes"], []).append(
+                    (g["rank"], o["ms"], o["wait_ms"], o["grew"]))
+    b4_e = [g["ring_launches"] for g in ranks]
+    log(f"    (e) GBDT under pallas_ring (gate {gate} B), "
+        f"{P23_GB_ROUNDS} round: launcher returned 0 in {e_secs:.1f} "
+        f"s; levels of 1 MiB and more on the ring, the smaller on gloo, in "
+        f"one job; top three levels phase 17's, log-loss "
+        f"{[round(v, 6) for v in losses]} within {rel:.3g} relative of "
+        f"phase 17's round 1; B4 by rank {b4_e}, B3 by rank "
+        f"{[g['launches']['gbdt_hist'] for g in ranks]}, group ops by rank "
+        f"{[g['stats']['device_ops'] - g['ring_launches'] for g in ranks]}; "
+        f"every ring op ((device epoch, op), bytes) {e_keys} bit-identical "
+        f"across the ranks and to ring_allreduce_p2p and _ring_plain")
+    log("    (e) level allreduce by path and bytes, ms (synchronize to "
+        "synchronize, all ranks): " + "; ".join(
+            f"{path} {nbytes} B median {statistics.median(v):.3f} "
+            f"over {len(v)}" for (path, nbytes), v in sorted(by_size.items())))
+    for nbytes, v in sorted(ring_by_rank.items()):
+        v.sort()
+        log(f"    (e) ring {nbytes} B by rank: op {[round(x[1], 3) for x in v]}"
+            f" ms, of which the start barrier's wait "
+            f"{[round(x[2], 3) for x in v]} ms; the table grew for it "
+            f"{[x[3] for x in v]}")
+    return {"ring_allreduce": {"kmeans": b4_d, "gbdt": b4_e},
+            "ring": dict(loop_ms=loop_ms, loop_wait_ms=loop_wait,
+                         form_ms=form_ms, reform_ms=reform_ring_ms,
+                         steady_ms=steady, steady_wait_ms=waits,
+                         bound_ms=bound, bound_by="bytes",
+                         gloo_steady_ms=steady_a, death_to_degrade_s=degrade,
+                         gbdt_ms={f"{p} {b}": statistics.median(v)
+                                  for (p, b), v in by_size.items()},
+                         gbdt_ring_by_rank={str(b): v for b, v in
+                                            ring_by_rank.items()})}
+
+
 def phase23(torch, w3, km):
     """Phase 23: the device-plane engine at world 3.  The port's
     ``launch_local.launch(3, ...)`` with ``rabit_engine="xla"`` over
@@ -4620,12 +5037,17 @@ def phase23(torch, w3, km):
     iteration sum to the rows, iterations 1-3 equal phase 17's;
     centroids within 1e-3 of the plain loop (run here meanwhile) and,
     at version 3, within the float32 sum bar of phase 17's.  (b)
-    ``boosting.train`` on phase 17's thirds, 2 rounds, float32 kernel,
-    no fault: one device allreduce a level, top three levels as phase
-    17's, log-loss within 1e-4.  (c) The engine's NCCL `new_group` at
-    world 1 on an in-process store, one allreduce of the (64, 257)
-    stats: the only NCCL code one card can run.  Returns B1's and B3's
-    launches."""
+    ``boosting.train`` on phase 17's thirds, ``P23_GB_ROUNDS`` round,
+    float32 kernel, no fault: one device allreduce a level, top three
+    levels as phase 17's, log-loss within 1e-4.  (d) and (e) (``_p23_ring``): (a)'s and
+    (b)'s jobs under ``rabit_device_impl=pallas_ring``, B4 across the
+    three processes through CUDA IPC inboxes and the host start barrier,
+    with (a)'s checks and its death, (b)'s checks, both paths in (e),
+    and every kept ring op bit-identical across the ranks and to B4 and
+    its plain version over the same inputs.  (c) The engine's NCCL
+    `new_group` at world 1 on an in-process store, one allreduce of the
+    (64, 257) stats: the only NCCL code one card can run.  Returns B1's,
+    B3's and B4's launches, and the ring's times."""
     import datetime
     import threading
 
@@ -4639,7 +5061,8 @@ def phase23(torch, w3, km):
         f"at world {W3_RANKS} on one card: k-means dense16 {MAIN_ROWS} x "
         f"256 k={K}, {P23_ITERS} iterations, rank 1 SIGKILLed entering "
         f"iteration 2's device allreduce; boosting.train {GBDT_ROWS} x "
-        f"{GBDT_FEATURES}, {W3_GB_ROUNDS} rounds, float32 kernel | "
+        f"{GBDT_FEATURES}, {P23_GB_ROUNDS} round, float32 kernel; both "
+        f"again under pallas_ring (B4 across the processes) | "
         f"nvidia-smi: {smi_line()}")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4720,7 +5143,7 @@ def phase23(torch, w3, km):
         glives = _p23_lives(tmp, "gbdt")
         ranks = [glives[r][0] for r in range(W3_RANKS)]
         want_top = [top_levels([TreeNode(*n) for n in t], 3)
-                    for t in w3["f32_trees"]]
+                    for t in w3["f32_trees"][:P23_GB_ROUNDS]]
         for g in ranks:
             tag = f"phase 23 gbdt rank {g['rank']}"
             levels = sum(sum(1 for c in lc if c) for lc in g["level_chunks"])
@@ -4741,7 +5164,7 @@ def phase23(torch, w3, km):
                                      f"17's {want_top}")
         n = sum(g["rows"] for g in ranks)
         losses = [sum(g["loss_sums"][i] for g in ranks) / n
-                  for i in range(W3_GB_ROUNDS)]
+                  for i in range(P23_GB_ROUNDS)]
         rel = max(abs(a - b) / b for a, b in zip(losses, w3["f32_losses"]))
         if rel > 1e-4:
             raise AssertionError(f"phase 23 gbdt: log-loss {losses} vs phase "
@@ -4749,14 +5172,15 @@ def phase23(torch, w3, km):
         big = [[o["ms"] for o in g["ops"] if o["bytes"] == P23_LEVEL_BYTES]
                for g in ranks]
         log(f"    (b) GBDT: launcher returned 0 in {gb_secs:.1f} s; one "
-            f"device allreduce a level on every rank, top three levels of "
-            f"both trees phase 17's, log-loss by round "
+            f"device allreduce a level on every rank, {P23_GB_ROUNDS} "
+            f"round: top three levels phase 17's, log-loss by round "
             f"{[round(v, 6) for v in losses]} within {rel:.3g} relative; "
             f"B3 by rank {[g['launches']['gbdt_hist'] for g in ranks]}; "
             f"the largest level ({P23_LEVEL_BYTES} B) device allreduce by "
             f"rank {[[round(t, 3) for t in b] for b in big]} ms, phase 17's "
             f"host-plane one {[round(t, 3) for t in w3['f32_level_ms']]} ms")
         out["gbdt_hist"] = [g["launches"]["gbdt_hist"] for g in ranks]
+        out.update(_p23_ring(torch, w3, oracle, tmp, steady))
 
     # (c) NCCL at world 1 on the card
     if xla.backend_for([xla.device_identity()]) != "nccl":
@@ -4810,24 +5234,30 @@ P24_W_TOL = dict(rtol=1e-3, atol=1e-3)
 def linear_rows(n=MAIN_ROWS, nnz=P24_NNZ, nf=P24_FEATURES, seed=P24_SEED):
     """A SparseMat of n rows of nnz hashed features in [0, nf) with
     normal values, labelled from a planted logistic model (labels drawn
-    from its probabilities), from ``seed``."""
+    from its probabilities), from ``seed``; made once a run
+    (:func:`cached`)."""
     from rabit_tpu_torch.learn.data import SparseMat
 
-    rng = np.random.default_rng(seed)
-    w_true = rng.standard_normal(nf).astype(np.float32)
-    idx = np.empty((n, nnz), np.int32)
-    val = np.empty((n, nnz), np.float32)
-    labels = np.empty(n, np.float32)
-    block = 1 << 20
-    for lo in range(0, n, block):
-        hi = min(n, lo + block)
-        idx[lo:hi] = rng.integers(0, nf, (hi - lo, nnz), dtype=np.int32)
-        val[lo:hi] = rng.standard_normal((hi - lo, nnz), np.float32)
-        margin = (w_true[idx[lo:hi]] * val[lo:hi]).sum(1)
-        labels[lo:hi] = rng.random(hi - lo) < 1.0 / (1.0 + np.exp(-margin))
+    def make():
+        rng = np.random.default_rng(seed)
+        w_true = rng.standard_normal(nf).astype(np.float32)
+        idx = np.empty((n, nnz), np.int32)
+        val = np.empty((n, nnz), np.float32)
+        labels = np.empty(n, np.float32)
+        block = 1 << 20
+        for lo in range(0, n, block):
+            hi = min(n, lo + block)
+            idx[lo:hi] = rng.integers(0, nf, (hi - lo, nnz), dtype=np.int32)
+            val[lo:hi] = rng.standard_normal((hi - lo, nnz), np.float32)
+            margin = (w_true[idx[lo:hi]] * val[lo:hi]).sum(1)
+            labels[lo:hi] = rng.random(hi - lo) < 1.0 / (1.0 + np.exp(-margin))
+        return dict(idx=idx, val=val, labels=labels)
+
+    rows = cached(("linear_rows", n, nnz, nf, seed), make)
     return SparseMat(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
-                     findex=idx.reshape(-1), fvalue=val.reshape(-1),
-                     labels=labels, feat_dim=nf)
+                     findex=rows["idx"].reshape(-1),
+                     fvalue=rows["val"].reshape(-1),
+                     labels=rows["labels"], feat_dim=nf)
 
 
 def _take_rows(data, rows):
@@ -5389,6 +5819,7 @@ def main() -> int:
     from rabit_tpu_torch.ops import ring_allreduce as rg
 
     t_start = time.perf_counter()
+    scratch = run_dir()
     # 1. the card
     kind = torch.cuda.get_device_name(0)
     card = smi_line()
@@ -5397,6 +5828,8 @@ def main() -> int:
     log(f"[1] device: {kind} | nvidia-smi: {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     log("    TF32 off for matmul and cuDNN: plain versions run full float32")
+    log(f"    the world-3 phases' generated rows and the rank processes' "
+        f"bytecode kept in {scratch} for this run")
 
     # 2. build
     t0 = time.perf_counter()
@@ -5874,6 +6307,10 @@ def main() -> int:
                 p23["kmeans_stats_dense"]
         if line["name"] == "gbdt_hist":
             line["phase23_launches_by_rank"] = p23["gbdt_hist"]
+        if line["name"] == "ring_allreduce":
+            line["phase23_launches_by_job_rank_and_life"] = \
+                p23["ring_allreduce"]
+            line["phase23_across_processes"] = p23["ring"]
     log(f"    phase 23 took {time.perf_counter() - t0:.1f} s")
 
     # 24. the linear learner at world 1 and under torchrun (adopt mode),
@@ -5884,6 +6321,7 @@ def main() -> int:
         if line["name"] == "kmeans_stats_dense":
             line["phase24_launches_by_rank"] = p24["kmeans_stats_dense"]
     log(f"    phase 24 took {time.perf_counter() - t0:.1f} s")
+    log(f"    run directory: {cache_gain()}")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
     print(smi_line(), flush=True)

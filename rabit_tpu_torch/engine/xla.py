@@ -73,10 +73,26 @@ over the external group, and any misaligned rank degrades every rank for
 the whole job.  A relaunch comes up degraded for good and never joins
 that consensus.
 
+**pallas_ring** (``rabit_device_impl=pallas_ring``, with the size
+gate ``rabit_pallas_min_bytes``, 1 MiB by default): large SUM, MAX, MIN
+and PROD allreduces of float32, bfloat16 and int32 run the ring kernel
+B4 across the rank processes, through the table of
+:mod:`rabit_tpu_torch.parallel.peer_ring` (CUDA IPC inboxes and a start
+barrier on the host), built at each formation over the group;
+:meth:`XLAEngine._use_pallas_ring` is the gate, as the reference's.  The
+plane holds the ring only where every rank is on CUDA (on one card, or
+on cards that every rank can reach by peer access), decided once at
+formation, as the reference holds it only on a TPU backend or in one
+process: a CPU group stays on the group's allreduce.  A barrier given
+up, or a peer's inbox that cannot be opened, degrades the op like a gloo
+failure.  A ring library that does not load, or CUDA IPC that this host
+refuses, is no peer's failure: ``init`` probes both on a rank with a
+card and raises.
+
 Left out, each raising :class:`NotImplementedError` that names its
-ROADMAP item: ``rabit_device_impl=pallas_ring``, the ring kernel across
-ranks, A7; the ``native`` inner engine, the ``mpi`` CPU collectives,
-telemetry and tracing, A8.
+ROADMAP item: ``pallas_ring`` in adopt and mixed modes, A7b; the
+``native`` inner engine, the ``mpi`` CPU collectives, telemetry and
+tracing, A8.
 """
 from __future__ import annotations
 
@@ -84,6 +100,7 @@ import datetime
 import os
 import socket
 import sys
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -92,6 +109,8 @@ import torch.distributed as dist
 
 from rabit_tpu_torch.engine.interface import CollectiveHandle, Engine
 from rabit_tpu_torch.ops import ReduceOp
+from rabit_tpu_torch.ops.ring_allreduce import PeerError, supported_ops
+from rabit_tpu_torch.parallel import peer_ring
 from rabit_tpu_torch.tracker import protocol as P
 from rabit_tpu_torch.utils.checks import check
 from rabit_tpu_torch.utils.net import routable_ip
@@ -127,9 +146,10 @@ def _is_runtime_failure(e: BaseException) -> bool:
     """True for *runtime/peer* failures of a device collective (worth
     degrading to the host path); programming errors must propagate.
     ``torch.distributed``'s typed errors (``DistError`` and its store,
-    network and backend subclasses) and OSError always count; a bare
-    RuntimeError counts only with a transport marker in its message."""
-    if isinstance(e, (dist.DistError, OSError)):
+    network and backend subclasses), the ring's :class:`PeerError` and
+    OSError always count; a bare RuntimeError counts only with a
+    transport marker in its message."""
+    if isinstance(e, (dist.DistError, PeerError, OSError)):
         return True
     if type(e) is not RuntimeError:
         return False
@@ -167,8 +187,26 @@ def device_identity() -> str:
     the same string)."""
     if not torch.cuda.is_available():
         return "cpu"
-    props = torch.cuda.get_device_properties(torch.cuda.current_device())
-    return f"cuda:{props.uuid}"
+    return device_identity_of(torch.cuda.current_device())
+
+
+def device_identity_of(index: int) -> str:
+    return f"cuda:{torch.cuda.get_device_properties(index).uuid}"
+
+
+def ring_reachable(devices: list[str]) -> bool:
+    """Whether this rank can read every rank's card: each card in
+    ``devices`` (CUDA identities as :func:`device_identity` gives them)
+    is this rank's own or visible here with peer access from it."""
+    local = {device_identity_of(i): i
+             for i in range(torch.cuda.device_count())}
+    me = torch.cuda.current_device()
+    for d in set(devices):
+        i = local.get(d)
+        if i is None or (i != me and
+                         not torch.cuda.can_device_access_peer(me, i)):
+            return False
+    return True
 
 
 def new_group(store, rank: int, world: int, backend: str,
@@ -210,6 +248,16 @@ class XLAEngine(Engine):
         # adopt/mixed: the device plane is the caller's default group
         self._adopted = False
         self._no_host_transport = False     # adopt: no host engine at all
+        # pallas_ring: the gate's settings and the ring's table, built at
+        # formation where the plane holds the ring
+        self._device_impl = "psum"
+        self._pallas_min_bytes = 1 << 20
+        self._ring: Optional[peer_ring.PeerRing] = None
+        # inboxes of tables closed on a failure, freed at the next
+        # table's formation or ordered teardown (a late peer may still
+        # fold them until then)
+        self._ring_orphans: list = []
+        self.ring_form_ms: Optional[float] = None   # the last table's
         # observable path counters (tests assert post-reform collectives
         # ride the device plane again, not the degraded host path)
         self.path_stats = {"device_ops": 0, "host_ops": 0, "backend": None}
@@ -219,21 +267,19 @@ class XLAEngine(Engine):
     # ------------------------------------------------------------------
     def init(self, params: dict) -> None:
         self._refuse_unported(params)
-        # psum is the group's allreduce; pallas_ring (B4 across ranks) and
-        # its size gate wait for A7, so the gate is only validated
-        impl = str(params.get("rabit_device_impl")
-                   or os.environ.get("RABIT_DEVICE_IMPL", "psum")).lower()
-        check(impl in ("psum", "pallas_ring"),
-              "rabit_device_impl must be psum|pallas_ring, got %r", impl)
-        if impl == "pallas_ring":
-            raise NotImplementedError(
-                "rabit_device_impl='pallas_ring' (the ring kernel across "
-                "ranks) is not ported to rabit_tpu_torch yet (ROADMAP A7)")
+        # psum is the group's allreduce; pallas_ring runs B4 across the
+        # rank processes for allreduces the gate lets through
+        self._device_impl = str(
+            params.get("rabit_device_impl")
+            or os.environ.get("RABIT_DEVICE_IMPL", "psum")).lower()
+        check(self._device_impl in ("psum", "pallas_ring"),
+              "rabit_device_impl must be psum|pallas_ring, got %r",
+              self._device_impl)
         min_bytes = params.get("rabit_pallas_min_bytes")
         if min_bytes is None:
             min_bytes = os.environ.get("RABIT_PALLAS_MIN_BYTES", 1 << 20)
         try:
-            int(min_bytes)
+            self._pallas_min_bytes = int(min_bytes)
         except (TypeError, ValueError):
             check(False, "rabit_pallas_min_bytes must be an integer "
                   "byte count, got %r", min_bytes)
@@ -262,6 +308,12 @@ class XLAEngine(Engine):
                         or os.environ.get("RABIT_NUM_TRIAL", 0)),
                     int(os.environ.get("RABIT_RELAUNCH", 0)))
         external = dist.is_available() and dist.is_initialized()
+        if self._device_impl == "pallas_ring" and external and (
+                uri or dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "rabit_device_impl='pallas_ring' on an externally "
+                "initialised torch.distributed group (adopt and mixed "
+                "modes) is not ported to rabit_tpu_torch yet (ROADMAP A7b)")
         if not uri:
             # No tracker: adopt whatever world torch.distributed already
             # lives in (a single process, or torchrun's group).
@@ -321,6 +373,11 @@ class XLAEngine(Engine):
             else:
                 self._build_group_mixed()
             return
+        if self._device_impl == "pallas_ring" and torch.cuda.is_available():
+            # the ring's library and CUDA IPC on this rank's card, tried
+            # here, outside the runtime-failure filter of formation: a
+            # failure is the job's setting, raised, never a degraded start
+            peer_ring.probe()
         if trial > 0:
             # Mid-job relaunch: the group of the first life died with
             # it and the survivors' group cannot admit a new member.
@@ -491,11 +548,14 @@ class XLAEngine(Engine):
             self._hosted_store = None       # replay of an older round
         return coord
 
-    def _connect_distributed(self, coord: str, timeout: float) -> None:
+    def _connect_distributed(self, coord: str, timeout: float,
+                             epoch: Optional[int] = None) -> None:
         """Form the group on the store at ``coord``: exchange every
         rank's device through it, pick the backend, build the group
         object with ``timeout`` for its connect, then the op timeout
-        (2 x rabit_timeout_sec, at least 30 s)."""
+        (2 x rabit_timeout_sec, at least 30 s).  Under pallas_ring, also
+        decide whether the plane holds the ring and, if it does, build
+        the ring's table for device epoch ``epoch``."""
         host, port = coord.rsplit(":", 1)
         delta = datetime.timedelta(seconds=timeout)
         if self._hosted_store is not None:
@@ -525,12 +585,64 @@ class XLAEngine(Engine):
         self.path_stats["backend"] = backend
         shared = (devices[self._rank] != "cpu"
                   and devices.count(devices[self._rank]) > 1)
+        epoch = self._device_epoch if epoch is None else epoch
         self._log_stderr(
             f"rank {self._rank} formed the device plane (epoch "
-            f"{self._device_epoch}): backend {backend} on "
+            f"{epoch}): backend {backend} on "
             f"{self._device.type} tensors"
             + (" (ranks share a card: gloo stages through host memory)"
                if shared else ""))
+        if self._device_impl == "pallas_ring":
+            if self._ring_holds(prefixed, devices):
+                self._form_ring(epoch)
+            else:
+                self._log_stderr(
+                    "pallas_ring: the plane cannot hold the ring (a rank "
+                    "on the CPU, or a card some rank cannot reach); "
+                    "allreduces stay on the group")
+
+    def _ring_holds(self, store, devices: list[str]) -> bool:
+        """Whether the plane holds the ring, the same answer on every
+        rank: every rank on CUDA, at most the kernel's ranks, and where
+        the cards differ every rank able to reach every card (each
+        rank's answer exchanged through ``store``)."""
+        if any(d == "cpu" for d in devices) or \
+                self._world > peer_ring.MAX_PEERS:
+            return False
+        if len(set(devices)) == 1:
+            return True
+        store.set(f"peer/{self._rank}", "1" if ring_reachable(devices)
+                  else "0")
+        return all(store.get(f"peer/{r}") == b"1"
+                   for r in range(self._world))
+
+    def _form_ring(self, epoch: int) -> None:
+        """Build the ring's table over the group: one allgather of every
+        rank's inbox handles and the barrier's page."""
+        t = time.perf_counter()
+        self._ring = peer_ring.PeerRing(
+            self._rank, self._world, self._exchange_bytes, self._device,
+            timeout=self._init_timeout, tag=f"{self._job_id}.e{epoch}",
+            capacity=self._pallas_min_bytes)
+        self.ring_form_ms = (time.perf_counter() - t) * 1e3
+        # every rank of the new epoch has joined its allgather, so each
+        # has dropped the tables of earlier epochs, and no peer folds
+        # their inboxes any more
+        peer_ring.free_inboxes(self._ring_orphans)
+        self._log_stderr(
+            f"pallas_ring: rank {self._rank} built the ring's table "
+            f"(epoch {epoch}, {self._ring.capacity} B inboxes) in "
+            f"{self.ring_form_ms:.3f} ms")
+
+    def _exchange_bytes(self, record: bytes) -> list:
+        """Every rank's ``record`` (one length on every rank), in rank
+        order: one allgather over the group."""
+        t = torch.frombuffer(bytearray(record), dtype=torch.uint8)
+        if self._backend == "nccl":
+            t = t.to(self._device)
+        parts = [torch.empty_like(t) for _ in range(self._world)]
+        self._group.allgather([parts], [t]).wait()
+        return [p.cpu().numpy().tobytes() for p in parts]
 
     def _adopt_default_group(self) -> None:
         """Take ``torch.distributed``'s default group as the device plane
@@ -588,11 +700,21 @@ class XLAEngine(Engine):
             + "; running degraded on the host transport for the whole "
             "job.  Launch with RABIT_TRACKER_PIN_RANKS=1 on the tracker")
 
-    def _drop_group(self) -> None:
+    def _drop_group(self, quiet: bool = False) -> None:
         """Tear down the current group: abort (or shut down) where the
         backend can, so peers blocked on this rank fail at once, then
         drop the object and the store client.  An adopted group is the
-        caller's: it is only forgotten."""
+        caller's: it is only forgotten.  The ring's table is closed;
+        ``quiet`` (an ordered teardown past its first barrier) frees its
+        inboxes at once, else they wait for the next table's formation or
+        ordered teardown, since a late peer may still fold them."""
+        ring, self._ring = self._ring, None
+        if ring is not None:
+            try:
+                self._ring_orphans += ring.close(quiet=quiet)
+            except Exception as e:  # noqa: BLE001 — logged; the group goes
+                self._log_stderr(f"closing the ring's table failed "
+                                 f"({type(e).__name__}: {e})")
         group, self._group = self._group, None
         if group is not None and not self._adopted:
             for name in ("abort", "shutdown"):
@@ -612,13 +734,26 @@ class XLAEngine(Engine):
     def _shutdown_distributed_ordered(self) -> None:
         """Tear the group down with the race closed: followers drop
         theirs while rank 0, which may host the store, is provably
-        alive (host barrier between the waves)."""
+        alive (host barrier between the waves).  The ring's peers'
+        handles close before the first barrier, so past it every rank's
+        inboxes are free to go."""
+        try:
+            if self._ring is not None:
+                self._ring.release_peers()
+        except Exception as e:  # noqa: BLE001 — the teardown goes on
+            self._log_stderr(f"closing the ring's peer handles failed "
+                             f"({type(e).__name__}: {e})")
         self._control_barrier()
+        try:
+            peer_ring.free_inboxes(self._ring_orphans)
+        except Exception as e:  # noqa: BLE001 — the teardown goes on
+            self._log_stderr(f"freeing a failed table's inboxes failed "
+                             f"({type(e).__name__}: {e})")
         if self._rank != 0:
-            self._drop_group()
+            self._drop_group(quiet=True)
         self._control_barrier()
         if self._rank == 0:
-            self._drop_group()
+            self._drop_group(quiet=True)
 
     def _control_barrier(self) -> None:
         """Barrier over the host control plane (all ranks must call).
@@ -719,7 +854,8 @@ class XLAEngine(Engine):
             self._device_epoch += 1
             return
         try:
-            self._connect_distributed(coord, self._init_timeout)
+            self._connect_distributed(coord, self._init_timeout,
+                                      epoch=self._device_epoch + 1)
         except Exception as e:  # noqa: BLE001 — filtered just below
             if not _is_runtime_failure(e):
                 raise
@@ -867,11 +1003,38 @@ class XLAEngine(Engine):
         return torch.from_numpy(np.ascontiguousarray(out)).to(
             buf.device, buf.dtype)
 
+    def _use_pallas_ring(self, shape, dtype_name, op: ReduceOp) -> bool:
+        """pallas_ring serves large {SUM,MAX,MIN,PROD} allreduces of the
+        kernel's dtypes (float32, bfloat16, int32); small payloads, other
+        ops and other dtypes stay on the group's allreduce (psum).  As in
+        the reference, the ring engages only where the plane can hold it
+        (every rank on CUDA, decided at formation: the table exists), or
+        at world 1.  ``dtype_name``: a dtype's name (``"float32"``) or a
+        torch dtype."""
+        if self._device_impl != "pallas_ring":
+            return False
+        if self._world > 1 and self._ring is None:
+            return False
+        if ReduceOp(op) not in supported_ops():
+            return False
+        dtype = (getattr(torch, dtype_name, None)
+                 if isinstance(dtype_name, str) else dtype_name)
+        if dtype not in peer_ring.RING_DTYPES:
+            return False
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        return nbytes >= self._pallas_min_bytes
+
     def _device_collective(self, kind: str, buf: torch.Tensor,
                            op: ReduceOp) -> torch.Tensor:
         if self._backend == "nccl" and buf.device != self._device:
             raise ValueError(f"device collective: the nccl plane runs on "
                              f"{self._device}, got a tensor on {buf.device}")
+        if (kind == "allreduce" and self._use_pallas_ring(
+                tuple(buf.shape), buf.dtype, op)
+                and buf.device == self._ring.device):
+            out = self._ring.allreduce(buf, op)
+            self.path_stats["device_ops"] += 1
+            return out
         src = buf.detach().clone(memory_format=torch.contiguous_format)
         if kind == "allreduce":
             opts = dist.AllreduceOptions()

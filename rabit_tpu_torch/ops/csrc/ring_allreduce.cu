@@ -18,12 +18,15 @@
 // What bounds it on an H100: bytes.  Each input element is read once and
 // each result written once to every rank's output row: 2 * ndev * size
 // elements, the least any allreduce that leaves a copy on every rank can
-// move.  No arithmetic is worth counting.
+// move.  No arithmetic is worth counting.  One rank of several processes
+// reads ndev * size elements and writes size: each rank folds the whole
+// payload itself, so that no end barrier is needed.
 //
 // Design:
 //  * inputs are read in place through a __grid_constant__ table of the
 //    ranks' pointers; the output is one (ndev, ld_out) buffer whose rows
-//    are 16-byte aligned;
+//    are 16-byte aligned, or one row, the calling rank's, when the ranks
+//    are processes;
 //  * a 1-D grid strides over 16-byte vectors of the `size` real elements;
 //    chunks are multiples of 128 elements, so a vector never straddles two
 //    chunks.  Padding is never touched.  A scalar loop covers the tail and,
@@ -34,12 +37,17 @@
 //    fminf would drop it).  bfloat16 combines in float32 and rounds each
 //    step to bfloat16, as jnp.add on bfloat16 does.  int32 SUM and PROD wrap.
 //
-// Across cards the same fold reads its peers over NVLink; it then needs
-// one start barrier on system-scope flags so that every rank's input is
-// ready (ROADMAP.md A7).  Here the stream orders the inputs' writers before
-// the launch.
+// Across rank processes (rabit_tpu_torch/parallel/peer_ring.py) the same
+// fold reads its peers' inputs in place: each rank copies its input into an
+// inbox of its own (cudaMalloc'd here, shared by a CUDA IPC handle), the
+// ranks meet at a start barrier on the host, and ring_allreduce_peer folds
+// every inbox into the calling rank's one output row.  No rank writes into
+// another's memory, so no flag lives on the device.  Within one process the
+// stream orders the inputs' writers before the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -113,7 +121,7 @@ template <typename T, int kOp>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const __grid_constant__ Ranks in, int ndev, long long size,
             long long chunk, bool vectors, T* __restrict__ out,
-            long long ld_out) {
+            long long ld_out, int nout) {
   constexpr int kVec = 16 / sizeof(T);
   const long long stride = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -129,7 +137,7 @@ fold_kernel(const __grid_constant__ Ranks in, int ndev, long long size,
       for (int i = 0; i < kVec; ++i) av[i] = Combine<kOp>::f(av[i], bv[i]);
       return a;
     });
-    for (int r = 0; r < ndev; ++r)
+    for (int r = 0; r < nout; ++r)
       *reinterpret_cast<uint4*>(out + r * ld_out + p) = acc;
   }
   for (long long p = nvec * kVec + first; p < size; p += stride) {
@@ -137,13 +145,13 @@ fold_kernel(const __grid_constant__ Ranks in, int ndev, long long size,
     const T acc = fold<T>(in, ndev, c, p, [](T a, T b) {
       return Combine<kOp>::f(a, b);
     });
-    for (int r = 0; r < ndev; ++r) out[r * ld_out + p] = acc;
+    for (int r = 0; r < nout; ++r) out[r * ld_out + p] = acc;
   }
 }
 
 template <typename T, int kOp>
 int launch_typed(const Ranks& in, int ndev, long long size, long long chunk,
-                 bool vectors, void* out, long long ld_out, int sms,
+                 bool vectors, void* out, long long ld_out, int nout, int sms,
                  cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const long long units = vectors ? size / kVec + size % kVec : size;
@@ -151,27 +159,53 @@ int launch_typed(const Ranks& in, int ndev, long long size, long long chunk,
   const long long most = (long long)sms * kBlocksPerSm;
   if (blocks > most) blocks = most;
   fold_kernel<T, kOp><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      in, ndev, size, chunk, vectors, static_cast<T*>(out), ld_out);
+      in, ndev, size, chunk, vectors, static_cast<T*>(out), ld_out, nout);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_op(int op, const Ranks& in, int ndev, long long size,
               long long chunk, bool vectors, void* out, long long ld_out,
-              int sms, cudaStream_t s) {
+              int nout, int sms, cudaStream_t s) {
   switch (op) {
     case kMax:
       return launch_typed<T, kMax>(in, ndev, size, chunk, vectors, out,
-                                   ld_out, sms, s);
+                                   ld_out, nout, sms, s);
     case kMin:
       return launch_typed<T, kMin>(in, ndev, size, chunk, vectors, out,
-                                   ld_out, sms, s);
+                                   ld_out, nout, sms, s);
     case kSum:
       return launch_typed<T, kSum>(in, ndev, size, chunk, vectors, out,
-                                   ld_out, sms, s);
+                                   ld_out, nout, sms, s);
     case kProd:
       return launch_typed<T, kProd>(in, ndev, size, chunk, vectors, out,
-                                    ld_out, sms, s);
+                                    ld_out, nout, sms, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fold of xs[0..ndev) into `nout` rows of out (row stride ld_out).
+int launch(const long long* xs, int ndev, long long size, long long chunk,
+           int vectors, int dtype, int op, void* out, long long ld_out,
+           int nout, int sms, void* stream) {
+  if (ndev < 2 || ndev > kMaxRanks || size < 1 || chunk < 1 ||
+      chunk % 128 != 0 || (long long)ndev * chunk < size || sms < 1 ||
+      nout < 1 || (nout > 1 && ld_out < size))
+    return (int)cudaErrorInvalidValue;
+  Ranks in = {};
+  for (int r = 0; r < ndev; ++r) in.x[r] = reinterpret_cast<const void*>(xs[r]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool v = vectors != 0;
+  switch (dtype) {
+    case kF32:
+      return launch_op<float>(op, in, ndev, size, chunk, v, out, ld_out, nout,
+                              sms, s);
+    case kBf16:
+      return launch_op<__nv_bfloat16>(op, in, ndev, size, chunk, v, out,
+                                      ld_out, nout, sms, s);
+    case kI32:
+      return launch_op<int>(op, in, ndev, size, chunk, v, out, ld_out, nout,
+                            sms, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -193,26 +227,66 @@ int ring_allreduce_max_ranks() { return kMaxRanks; }
 int ring_allreduce(const long long* xs, int ndev, long long size,
                    long long chunk, int vectors, int dtype, int op, void* out,
                    long long ld_out, int sms, void* stream) {
-  if (ndev < 2 || ndev > kMaxRanks || size < 1 || chunk < 1 ||
-      chunk % 128 != 0 || (long long)ndev * chunk < size || ld_out < size ||
-      sms < 1)
-    return (int)cudaErrorInvalidValue;
-  Ranks in = {};
-  for (int r = 0; r < ndev; ++r) in.x[r] = reinterpret_cast<const void*>(xs[r]);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v = vectors != 0;
-  switch (dtype) {
-    case kF32:
-      return launch_op<float>(op, in, ndev, size, chunk, v, out, ld_out, sms,
-                              s);
-    case kBf16:
-      return launch_op<__nv_bfloat16>(op, in, ndev, size, chunk, v, out,
-                                      ld_out, sms, s);
-    case kI32:
-      return launch_op<int>(op, in, ndev, size, chunk, v, out, ld_out, sms,
-                            s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (ld_out < size) return (int)cudaErrorInvalidValue;
+  return launch(xs, ndev, size, chunk, vectors, dtype, op, out, ld_out, ndev,
+                sms, stream);
+}
+
+// One rank of ranks in several processes: xs[r] is rank r's inbox (this
+// rank's own, or a peer's opened from its IPC handle), every one holding
+// its `size` input elements; out: this rank's result, one row.  vectors:
+// every xs[r] and out are 16-byte aligned.
+int ring_allreduce_peer(const long long* xs, int ndev, long long size,
+                        long long chunk, int vectors, int dtype, int op,
+                        void* out, int sms, void* stream) {
+  return launch(xs, ndev, size, chunk, vectors, dtype, op, out, size, 1, sms,
+                stream);
+}
+
+// The inboxes and their handles.  Each returns a cudaError_t.  An inbox is
+// a cudaMalloc of its own, never a block of PyTorch's caching allocator:
+// cudaIpcGetMemHandle on a pointer inside a cached block would name the
+// block's base, and under expandable segments it is refused.
+int ring_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+int ring_inbox_alloc(long long nbytes, long long* ptr) {
+  void* p = nullptr;
+  const cudaError_t err = cudaMalloc(&p, (size_t)nbytes);
+  *ptr = reinterpret_cast<long long>(p);
+  return (int)err;
+}
+
+int ring_inbox_free(long long ptr) {
+  return (int)cudaFree(reinterpret_cast<void*>(ptr));
+}
+
+int ring_ipc_get(long long ptr, unsigned char* handle) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t err = cudaIpcGetMemHandle(&h, reinterpret_cast<void*>(ptr));
+  if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  return (int)err;
+}
+
+int ring_ipc_open(const unsigned char* handle, long long* ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  void* p = nullptr;
+  const cudaError_t err =
+      cudaIpcOpenMemHandle(&p, h, cudaIpcMemLazyEnablePeerAccess);
+  *ptr = reinterpret_cast<long long>(p);
+  return (int)err;
+}
+
+int ring_ipc_close(long long ptr) {
+  return (int)cudaIpcCloseMemHandle(reinterpret_cast<void*>(ptr));
+}
+
+// A rank's input into its inbox, on the caller's stream.
+int ring_copy(long long dst, long long src, long long nbytes, void* stream) {
+  return (int)cudaMemcpyAsync(reinterpret_cast<void*>(dst),
+                              reinterpret_cast<const void*>(src),
+                              (size_t)nbytes, cudaMemcpyDeviceToDevice,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,8 +18,19 @@ launches the kernel or raises; on a CPU tensor it runs :func:`_ring_plain`
 (the hops themselves), which is also what the card's kernel is checked
 against.  ``LAUNCHES`` counts kernel launches.
 
-Ranks on more than one device (several cards) are not ported yet
-(ROADMAP.md): they raise ``NotImplementedError``.
+Ranks that are processes (on one card or several) go through
+:mod:`rabit_tpu_torch.parallel.peer_ring`, which calls this module's
+entry for one rank, :func:`ring_allreduce_peer`: the same fold over a
+table of raw pointers (the rank's own inbox and its peers', opened from
+their CUDA IPC handles) into that rank's one output row.  The inboxes
+and their handles are this module's too (:func:`inbox_alloc`,
+:func:`ipc_get`, :func:`ipc_open`, ...), each a call into the same
+library that raises when CUDA refuses it, naming the call: a
+:class:`PeerError` where a peer's handle cannot be opened or closed (a
+gone peer's doing), a plain ``RuntimeError`` for every other call (an
+allocation, this rank's own handle, a copy), which no caller may take
+for a peer's failure.  A list of tensors on several devices still
+raises ``NotImplementedError`` in :func:`ring_allreduce_p2p`.
 """
 from __future__ import annotations
 
@@ -30,6 +41,14 @@ import torch
 from rabit_tpu_torch.ops.reduce_ops import ReduceOp, apply_op_pairwise
 
 LAUNCHES = {"ring_allreduce": 0}
+
+
+class PeerError(RuntimeError):
+    """A failure of ranks in several processes that a peer caused: the
+    start barrier given up on a late or gone peer, or a peer's IPC handle
+    that cannot be opened or closed.  The device-plane engine degrades on
+    it; on nothing else that this module raises."""
+
 
 _SUPPORTED = frozenset({ReduceOp.SUM, ReduceOp.MAX, ReduceOp.MIN,
                         ReduceOp.PROD})
@@ -94,7 +113,8 @@ def _check_ranks(xs, op) -> None:
         raise NotImplementedError(
             f"ring_allreduce_p2p: ranks on {len(devices)} devices "
             f"({sorted(map(str, devices))}); ranks on more than one device "
-            "are not ported yet (ROADMAP.md A)")
+            "are processes of their own and go through "
+            "rabit_tpu_torch.parallel.peer_ring (ROADMAP.md A7)")
 
 
 def _ring_plain(xs, op=ReduceOp.SUM):
@@ -118,6 +138,15 @@ def _ring_fold_plain(xs, op=ReduceOp.SUM):
     shape.  It gives :func:`_ring_plain`'s bits (the CPU tests hold the
     two together)."""
     n, shape, size = len(xs), xs[0].shape, xs[0].numel()
+    out = ring_fold_one(xs, op).expand(n, size).clone()
+    return [out[r].view(shape) for r in range(n)]
+
+
+def ring_fold_one(xs, op=ReduceOp.SUM) -> torch.Tensor:
+    """:func:`_ring_fold_plain`'s result for one rank: a new flat tensor
+    of ``xs[0].numel()`` elements (the CPU version of
+    :func:`ring_allreduce_peer`)."""
+    n, size = len(xs), xs[0].numel()
     chunk = pallas_chunk(size, n, xs[0].element_size())
     flat = torch.stack([x.reshape(-1) for x in xs])
     p = torch.arange(size, device=flat.device)
@@ -125,8 +154,7 @@ def _ring_fold_plain(xs, op=ReduceOp.SUM):
     acc = flat[c, p]
     for j in range(1, n):
         acc = apply_op_pairwise(op, flat[(c + j) % n, p], acc)
-    out = acc.expand(n, size).clone()
-    return [out[r].view(shape) for r in range(n)]
+    return acc
 
 
 # ----------------------------------------------------------------- CUDA
@@ -145,7 +173,20 @@ def _lib() -> ctypes.CDLL:
         lib.ring_allreduce.argtypes = [ctypes.POINTER(ll), i, ll, ll, i, i,
                                        i, p, ll, i, p]
         lib.ring_allreduce.restype = i
+        lib.ring_allreduce_peer.argtypes = [ctypes.POINTER(ll), i, ll, ll, i,
+                                            i, i, p, i, p]
+        lib.ring_allreduce_peer.restype = i
         lib.ring_allreduce_max_ranks.restype = i
+        lib.ring_ipc_handle_bytes.restype = i
+        for name, args in (("ring_inbox_alloc", [ll, ctypes.POINTER(ll)]),
+                           ("ring_inbox_free", [ll]),
+                           ("ring_ipc_get", [ll, ctypes.c_char_p]),
+                           ("ring_ipc_open", [ctypes.c_char_p,
+                                              ctypes.POINTER(ll)]),
+                           ("ring_ipc_close", [ll]),
+                           ("ring_copy", [ll, ll, ll, p])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
         _MAX_RANKS = lib.ring_allreduce_max_ranks()
         lib.ring_allreduce_error_string.argtypes = [i]
         lib.ring_allreduce_error_string.restype = ctypes.c_char_p
@@ -195,6 +236,97 @@ def _ring_cuda(xs, op):
     LAUNCHES["ring_allreduce"] += 1
     rows = (out if ld == size else out.narrow(1, 0, size)).unbind(0)
     return list(rows) if len(shape) == 1 else [r.view(shape) for r in rows]
+
+
+def _cuda_call(call: str, err: int, peer: bool = False) -> None:
+    """Raise for a CUDA error ``err`` of ``call``: a :class:`PeerError`
+    where ``peer`` (the call was on a peer's handle), else a plain
+    ``RuntimeError``."""
+    if err != 0:
+        raise (PeerError if peer else RuntimeError)(
+            f"{call} failed: CUDA error {err} "
+            f"({_lib().ring_allreduce_error_string(err).decode()})")
+
+
+def inbox_alloc(nbytes: int) -> int:
+    """A new inbox of ``nbytes`` on the current CUDA device, by
+    ``cudaMalloc`` (never a block of PyTorch's caching allocator, whose
+    IPC handle would name the block's base); its device pointer."""
+    ptr = ctypes.c_longlong(0)
+    _cuda_call("cudaMalloc", _lib().ring_inbox_alloc(nbytes,
+                                                     ctypes.byref(ptr)))
+    return ptr.value
+
+
+def inbox_free(ptr: int) -> None:
+    _cuda_call("cudaFree", _lib().ring_inbox_free(ptr))
+
+
+def ipc_get(ptr: int) -> bytes:
+    """The CUDA IPC handle of the inbox at ``ptr``."""
+    buf = ctypes.create_string_buffer(_lib().ring_ipc_handle_bytes())
+    _cuda_call("cudaIpcGetMemHandle", _lib().ring_ipc_get(ptr, buf))
+    return buf.raw
+
+
+def ipc_open(handle: bytes) -> int:
+    """A peer's inbox in this process, from its IPC handle (with lazy
+    peer access, for a peer on another card)."""
+    ptr = ctypes.c_longlong(0)
+    _cuda_call("cudaIpcOpenMemHandle",
+               _lib().ring_ipc_open(handle, ctypes.byref(ptr)), peer=True)
+    return ptr.value
+
+
+def ipc_close(ptr: int) -> None:
+    _cuda_call("cudaIpcCloseMemHandle", _lib().ring_ipc_close(ptr),
+               peer=True)
+
+
+def inbox_copy(dst: int, src: torch.Tensor) -> None:
+    """Copy the contiguous CUDA tensor ``src`` into the inbox at ``dst``
+    on the current stream (the caller waits for it)."""
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    _cuda_call("cudaMemcpyAsync", _lib().ring_copy(
+        dst, src.data_ptr(), src.numel() * src.element_size(), stream))
+
+
+def ring_allreduce_peer(ptrs, size: int, op, out: torch.Tensor) -> None:
+    """One rank of ranks in several processes: fold the ``size`` elements
+    at each of ``ptrs`` (every rank's inbox in rank order, raw device
+    pointers readable from this process) in the ring's order into
+    ``out``, a contiguous CUDA tensor of ``size`` elements whose dtype is
+    the inputs'.  Launches on the current stream and returns without
+    waiting; raises before any launch for what the kernel cannot take."""
+    op = ReduceOp(op)
+    if op not in _SUPPORTED:
+        raise ValueError(f"ring_allreduce_peer: unsupported op {op}")
+    code = _DTYPE_CODES.get(out.dtype)
+    if code is None:
+        raise TypeError(f"ring_allreduce_peer takes float32, bfloat16 or "
+                        f"int32, got {out.dtype}")
+    if out.device.type != "cuda" or not out.is_contiguous() or \
+            out.numel() != size or size < 1:
+        raise ValueError(f"ring_allreduce_peer: out must be a contiguous "
+                         f"CUDA tensor of {size} elements, got "
+                         f"{tuple(out.shape)} on {out.device}")
+    lib = _lib()
+    n = len(ptrs)
+    if not 2 <= n <= _MAX_RANKS:
+        raise ValueError(f"ring_allreduce_peer: {n} ranks, the kernel takes "
+                         f"2 to {_MAX_RANKS}")
+    device = out.device.index
+    vectors = not any(q % _VECTOR_BYTES for q in (*ptrs, out.data_ptr()))
+    with torch.cuda.device(device):
+        err = lib.ring_allreduce_peer(
+            (ctypes.c_longlong * n)(*ptrs), n, size,
+            pallas_chunk(size, n, out.element_size()), vectors, code,
+            int(op), out.data_ptr(), _sms(device),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_allreduce_peer launch failed: CUDA error "
+                           f"{err} ({lib.ring_allreduce_error_string(err).decode()})")
+    LAUNCHES["ring_allreduce"] += 1
 
 
 # --------------------------------------------------------------- public

@@ -363,14 +363,330 @@ def test_programming_error_raises_and_peer_failure_degrades():
         assert stats["host_ops"] == 1 and stats["device_ops"] == 1, r
 
 
-# ----------------------------------------------------------- refusals
-def test_pallas_ring_is_refused():
-    with pytest.raises(NotImplementedError, match="A7"):
-        XLAEngine().init({"rabit_device_impl": "pallas_ring"})
+# ----------------------------------------------------------- pallas_ring
+def test_pallas_ring_is_refused(monkeypatch):
+    """What stays refused: an unknown impl, a size gate that is not a
+    byte count, and pallas_ring over an externally initialised group
+    (adopt and mixed modes, A7b).  At world 1 pallas_ring starts."""
+    XLAEngine().init({"rabit_device_impl": "pallas_ring"})
     with pytest.raises(Exception, match="rabit_device_impl"):
         XLAEngine().init({"rabit_device_impl": "warp"})
     with pytest.raises(Exception, match="rabit_pallas_min_bytes"):
         XLAEngine().init({"rabit_pallas_min_bytes": "lots"})
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 3)
+    for params in ({}, {"rabit_tracker_uri": "127.0.0.1",
+                        "rabit_tracker_port": 9}):
+        with pytest.raises(NotImplementedError, match="A7b"):
+            XLAEngine().init(dict(params, rabit_device_impl="pallas_ring"))
+
+
+def test_pallas_ring_routing():
+    """The reference's routing cases (``tests/test_xla_engine.py``
+    ``test_pallas_ring_routing``): large supported allreduces take the
+    ring, small payloads and bitwise ops stay on psum, psum by
+    default."""
+    eng = XLAEngine()
+    eng.init({"rabit_device_impl": "pallas_ring",
+              "rabit_pallas_min_bytes": 4096})
+    try:
+        assert eng._use_pallas_ring((2048,), "float32", ReduceOp.SUM)
+        assert eng._use_pallas_ring((64, 64), "float32", ReduceOp.MAX)
+        assert not eng._use_pallas_ring((16,), "float32", ReduceOp.SUM)
+        assert not eng._use_pallas_ring((2048,), "int32", ReduceOp.BITOR)
+        x = torch.arange(2048, dtype=torch.float32)
+        assert eng.allreduce(x, ReduceOp.SUM) is x        # world 1
+    finally:
+        eng.shutdown()
+    eng2 = XLAEngine()
+    eng2.init({})
+    try:
+        assert not eng2._use_pallas_ring((1 << 20,), "float32",
+                                         ReduceOp.SUM)
+    finally:
+        eng2.shutdown()
+
+
+@pytest.fixture(scope="module")
+def reference_gates():
+    """The reference engine at world 1 under pallas_ring, one a size
+    gate, started as its own routing test starts it."""
+    from rabit_tpu.engine.xla import XLAEngine as JXLAEngine
+
+    engines = {}
+    for min_bytes in (0, 4096, 1 << 20):
+        eng = JXLAEngine()
+        eng.init({"rabit_device_impl": "pallas_ring",
+                  "rabit_pallas_min_bytes": min_bytes})
+        engines[min_bytes] = eng
+    yield engines
+    for eng in engines.values():
+        eng.shutdown()
+
+
+GATE_SHAPES = [(1,), (16,), (1023,), (1024,), (2048,), (64, 64),
+               (3, 5, 7), (1 << 18,), (1 << 19,)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("min_bytes", [0, 4096, 1 << 20])
+def test_pallas_ring_gate_matches_the_reference(reference_gates, min_bytes,
+                                                dtype):
+    """At world 1 the port's gate answers as the reference's on every
+    shape and op, for the dtypes the kernel takes."""
+    from rabit_tpu.ops import ReduceOp as JOp
+
+    ref = reference_gates[min_bytes]
+    eng = XLAEngine()
+    eng.init({"rabit_device_impl": "pallas_ring",
+              "rabit_pallas_min_bytes": min_bytes})
+    answers = set()
+    for shape in GATE_SHAPES:
+        for op in ReduceOp:
+            want = ref._use_pallas_ring(shape, dtype, JOp(int(op)))
+            assert eng._use_pallas_ring(shape, dtype, op) == want, (
+                shape, op)
+            assert eng._use_pallas_ring(shape, getattr(torch, dtype),
+                                        op) == want
+            answers.add(want)
+    assert answers == {True, False}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float16", "int8", "uint8",
+                                   "int64"])
+def test_pallas_ring_dtypes_the_kernel_lacks_differ_on_purpose(
+        reference_gates, dtype):
+    """The reference's gate lets any dtype through; the port's keeps the
+    dtypes the kernel lacks on the group (ROADMAP §C)."""
+    from rabit_tpu.ops import ReduceOp as JOp
+
+    eng = XLAEngine()
+    eng.init({"rabit_device_impl": "pallas_ring",
+              "rabit_pallas_min_bytes": 0})
+    assert reference_gates[0]._use_pallas_ring((4096,), dtype, JOp.SUM)
+    assert not eng._use_pallas_ring((4096,), dtype, ReduceOp.SUM)
+    assert not eng._use_pallas_ring((4096,), getattr(torch, dtype),
+                                    ReduceOp.SUM)
+
+
+RING_PARAMS = {"rabit_device_impl": "pallas_ring",
+               "rabit_pallas_min_bytes": 4096}
+
+
+def test_cpu_group_stays_on_the_group():
+    """A CPU group at world 3 never holds the ring, as the reference's
+    multi-process CPU mesh stays on psum: the gate says no, no table is
+    built, and the op rides the group."""
+    def body(eng, trial, rec):
+        rec["gate"] = eng._use_pallas_ring((64, 257), torch.float32,
+                                           ReduceOp.SUM)
+        rec["ring"] = eng._ring
+        out = eng.allreduce(torch.full((64, 257), eng.rank + 1.0),
+                            ReduceOp.SUM)
+        rec["sum"] = float(out.sum())
+        rec["stats"] = dict(eng.path_stats)
+
+    recs, _ = run_world(3, body, params=RING_PARAMS)
+    for rec in recs:
+        assert rec["gate"] is False and rec["ring"] is None
+        assert rec["sum"] == 6.0 * 64 * 257
+        assert rec["stats"] == {"device_ops": 1, "host_ops": 0,
+                                "backend": "gloo"}
+
+
+def _inject_ring(eng, timeout):
+    """The test seam: a CPU-mode table on the engine's group, where the
+    gate keeps CPU groups off it."""
+    from rabit_tpu_torch.parallel.peer_ring import PeerRing
+
+    eng._ring = PeerRing(eng.rank, eng.world_size, eng._exchange_bytes,
+                         "cpu", timeout, tag="xlatest")
+    return eng._ring
+
+
+def test_injected_ring_serves_large_ops_and_the_group_small_ones():
+    """With the table injected, allreduces at or over the gate take the
+    ring (its bits, counted as device ops), smaller ones, allgather and
+    the dtypes the kernel lacks ride the group."""
+    from rabit_tpu_torch.ops import ring_allreduce as rg
+
+    xs = [torch.from_numpy(np.random.default_rng([5, r]).standard_normal(
+        1500).astype(np.float32)) for r in range(3)]
+
+    def body(eng, trial, rec):
+        ring = _inject_ring(eng, 5.0)
+        rec["big"] = eng.allreduce(xs[eng.rank], ReduceOp.SUM)
+        rec["seq"] = ring.seq
+        eng.allreduce(torch.ones(16), ReduceOp.SUM)
+        eng.allreduce(torch.ones(2048, dtype=torch.float64), ReduceOp.SUM)
+        eng.allgather(torch.ones(2048))
+        rec["after"] = (ring.seq, dict(eng.path_stats))
+
+    recs, _ = run_world(3, body, params=RING_PARAMS)
+    want = rg.ring_fold_one(xs, ReduceOp.SUM)
+    for rec in recs:
+        assert torch.equal(rec["big"].view(torch.int32),
+                           want.view(torch.int32))
+        assert rec["seq"] == 1
+        assert rec["after"] == (1, {"device_ops": 4, "host_ops": 0,
+                                    "backend": "gloo"})
+    assert _ring_files() == []           # shutdown closed every table
+
+
+def _ring_files():
+    """This process's files of tables tagged "xlatest"."""
+    import os
+
+    from rabit_tpu_torch.parallel.peer_ring import shm_dir
+
+    prefix = f"rabit_ring.xlatest.{os.getpid()}."
+    return [n for n in os.listdir(shm_dir()) if n.startswith(prefix)]
+
+
+def test_ring_barrier_timeout_degrades_to_the_host():
+    """Rank 2 comes to the ring op after the others' 1 s deadline: they
+    give up with a transport marker and degrade, rank 2 reads their
+    verdict and degrades too, and every rank gets the sum over the host
+    plane (``host_ops`` + 1), its table closed with no file left."""
+    def body(eng, trial, rec):
+        ring = _inject_ring(eng, 1.0)
+        assert eng.allreduce(torch.ones(2048), ReduceOp.SUM)[0] == 3.0
+        if eng.rank == 2:
+            time.sleep(1.5)
+        t = time.monotonic()
+        out = eng.allreduce(torch.full((2048,), eng.rank + 1.0),
+                            ReduceOp.SUM)
+        rec["took"] = time.monotonic() - t
+        rec["out"] = (float(out[0]), out.shape, eng._degraded, eng._ring,
+                      dict(eng.path_stats), ring.files(),
+                      ring.open_handles())
+
+    recs, _ = run_world(3, body, params=RING_PARAMS)
+    for r, rec in enumerate(recs):
+        val, shape, degraded, table, stats, files, handles = rec["out"]
+        assert val == 6.0 and shape == (2048,) and degraded and table is None
+        assert stats == {"device_ops": 1, "host_ops": 1, "backend": "gloo"}
+        assert files == [] and handles == 0
+    assert all(rec["took"] < 10.0 for rec in recs)   # never hangs
+    assert _ring_files() == []
+
+
+def test_ring_table_formation_frees_earlier_tables_inboxes(monkeypatch):
+    """Inboxes that a failure left allocated are freed once the next
+    table has formed (every rank of the new epoch has dropped the old
+    table by then), not only at the ordered teardown."""
+    from rabit_tpu_torch.parallel import peer_ring
+
+    freed = []
+
+    def free_inboxes(orphans):
+        freed.append(list(orphans))
+        orphans.clear()
+    monkeypatch.setattr(peer_ring, "free_inboxes", free_inboxes)
+
+    def body(eng, trial, rec):
+        eng._ring_orphans += [(0, 4096 * (eng.rank + 1))]
+        eng._form_ring(eng.device_epoch)    # the CPU-mode table, a seam
+        rec["orphans"] = list(eng._ring_orphans)
+        rec["freed"] = list(freed)
+        rec["sum"] = float(eng.allreduce(torch.ones(2048), ReduceOp.SUM)[0])
+        rec["ops"] = eng._ring.seq
+
+    recs, _ = run_world(2, body, params=RING_PARAMS)
+    for r, rec in enumerate(recs):
+        assert rec["orphans"] == [] and [(0, 4096 * (r + 1))] in rec["freed"]
+        assert rec["sum"] == 2.0 and rec["ops"] == 1
+
+
+class _NoIPCLib:
+    """The ring's library on a host whose CUDA refuses IPC handles: the
+    inbox allocates, ``cudaIpcGetMemHandle`` returns
+    cudaErrorNotSupported (801), and what is freed is recorded."""
+
+    def __init__(self):
+        self.freed = []
+
+    def ring_inbox_alloc(self, nbytes, ptr):
+        ptr._obj.value = 1 << 20
+        return 0
+
+    def ring_ipc_handle_bytes(self):
+        return 64
+
+    def ring_ipc_get(self, ptr, buf):
+        return 801
+
+    def ring_inbox_free(self, ptr):
+        self.freed.append(ptr)
+        return 0
+
+    def ring_allreduce_error_string(self, err):
+        return b"operation not supported"
+
+
+def _init_world(world, params):
+    """``init`` alone on ``world`` rank threads against one in-process
+    tracker, every wait bounded: (engine, the exception init raised or
+    None) by rank."""
+    trk = Tracker(world, "127.0.0.1", 0)
+    trk.start()
+    out = [None] * world
+
+    def run(i):
+        eng = XLAEngine()
+        try:
+            eng.init({"rabit_tracker_uri": "127.0.0.1",
+                      "rabit_tracker_port": trk.port,
+                      "rabit_task_id": str(i), "rabit_world_size": world,
+                      "rabit_timeout_sec": 20, **params})
+            out[i] = (eng, None)
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            out[i] = (eng, e)
+        if eng._inner is not None:
+            eng._inner._close_links()
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(world)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 10.0
+    for t in threads:
+        t.join(max(deadline - time.monotonic(), 0.0))
+    trk.stop()
+    assert not any(t.is_alive() for t in threads), "a rank thread hangs"
+    return out
+
+
+@pytest.mark.parametrize("fault", ["library", "ipc_get"])
+def test_ring_probe_failure_raises_and_never_degrades(monkeypatch, fault):
+    """On a rank with a card, a ring library that does not load, or an
+    IPC handle that CUDA refuses, makes ``init`` raise, naming what
+    failed: it is the job's setting, not a peer's death, so the job
+    neither starts degraded nor forms a plane."""
+    from rabit_tpu_torch.ops import ring_allreduce as rg
+
+    lib = _NoIPCLib()
+    if fault == "library":
+        def no_lib():
+            raise OSError("libring_allreduce.so: cannot open shared object "
+                          "file")
+        monkeypatch.setattr(rg, "_lib", no_lib)
+        want = (OSError, "cannot open shared object")
+    else:
+        monkeypatch.setattr(rg, "_lib", lambda: lib)
+        want = (RuntimeError, r"cudaIpcGetMemHandle failed: CUDA error 801")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for eng, err in _init_world(2, RING_PARAMS):
+        assert isinstance(err, want[0]) and not isinstance(
+            err, rg.PeerError), err
+        assert err.args and __import__("re").search(want[1], str(err))
+        assert not eng._degraded and eng._group is None
+        assert eng._ring is None and eng.path_stats["backend"] is None
+    if fault == "ipc_get":
+        assert not xla._is_runtime_failure(err)
+        assert lib.freed == [1 << 20, 1 << 20]     # the probe's inbox
+
+
+# ----------------------------------------------------------- refusals
 
 
 def test_native_inner_is_refused():
