@@ -206,7 +206,7 @@ Phases, each raising on failure (the script then exits non-zero):
 22. (after 21) elastic membership at world 3 <-> 2 over ``pyrobust``:
     the app loop of ``tests/workers/elastic_worker.py`` around
     ``kmeans.run`` on phase 5's dense16 rows (4,194,304 x 256, k=64,
-    bfloat16, 4 iterations, ``heartbeat_sec=0.5``, a fresh ckpt_dir a
+    bfloat16, 3 iterations, ``heartbeat_sec=0.5``, a fresh ckpt_dir a
     job), each rank re-sharding with ``splitrows.rows_for_rank`` at every
     world (this script with ``--phase22-rank`` or ``--phase22-grow``).
     (a) Shrink: ``launch_local.launch(3, ..., min_workers=2,
@@ -283,6 +283,30 @@ Phases, each raising on failure (the script then exits non-zero):
     It prints s per iteration, eval and gradient ms, the ELL's resident
     bytes, the gradient allreduce ms on the adopted group, death ->
     raise, and the stats op ms on the external group beside phase 23's.
+25. (after 24) ``rabit_device_impl=pallas_ring`` over an adopted group,
+    the port's speed_test on the device plane, and traces.  (a)
+    ``rabit_tpu_torch.tools.speed_test``'s device leg (CUDA tensors) at
+    world 3 under the port's ``launch_local`` (``--phase25-rank
+    tracker``), ``rabit_engine="xla"`` over ``pyrobust``, over its
+    runner's grid (10^4, 10^5, 10^6 float32): psum (gloo) and
+    pallas_ring at the 1 MiB default gate (10^6 floats on B4 across the
+    processes) side by side on one engine; MAX = 3 and SUM = 6 at every
+    element, the same bits on the three ranks.  (b) The same under
+    ``torchrun`` in adopt mode (psum, ``finalize``, then pallas_ring
+    adopted again), with a 1 MiB numpy payload on the ring in place;
+    then three plain processes at a P25_GATE gate, rank 1 SIGKILLed
+    entering a ring op: both survivors raise ``RuntimeError`` within
+    ``P24_RAISE_SEC``.  (c) Phase 24 (c)'s k-means job in mixed mode
+    under pallas_ring at P25_GATE (``--phase24-kmeans DIR ring``): every
+    stats op on the ring, bit-identical on the ranks and to
+    ``ring_allreduce_p2p`` and ``_ring_plain``, counts and centroids as
+    phase 24 (c)'s.  (d) ``rabit_tpu_torch.utils.profiler.trace`` over
+    one dense16 ``run()`` and one L-BFGS iteration at world 1, and over
+    P25_RING_REPS back-to-back ring ops of the stats in rank 0 of (a)'s
+    job: each window's device busy share (the union of kernel, copy and
+    memset intervals), the ring op's split (the D2D copy, the barrier's
+    wait, ``ring_allreduce_peer`` on the card) and B4 alone on the
+    table's inboxes (CUDA events).  No ``rabit_ring.*`` file is left.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -4032,17 +4056,19 @@ def _durable_times(which, run, p17_walls):
 
 
 # --------------------------------------------------------------- phase 22
-P22_ITERS = 4                      # k-means iterations: versions 1..4
+# k-means iterations: versions 1..3 (4 until phase 25 was added; the
+# last world of each job still runs an iteration)
+P22_ITERS = 3
 P22_HEARTBEAT_SEC = 0.5
 P22_KILL_VERSION = 1               # (a) rank 2 dies right after this commit
 P22_HOLD_VERSION = 1               # (b) the joiner starts after this commit
-# B1 launches by (epoch, world): (a) iteration 1 at world 3, 2-4 at world
+# B1 launches by (epoch, world): (a) iteration 1 at world 3, 2-3 at world
 # 2; (b) iterations 1-2 at world 2 (the grow lands at version 2's
-# commit), 3-4 at world 3
-P22_B1 = {"shrink": {"survivor": [[0, 3, 1], [1, 2, 3]],
+# commit), 3 at world 3
+P22_B1 = {"shrink": {"survivor": [[0, 3, 1], [1, 2, 2]],
                      "leaver": [[0, 3, 1]]},
-          "grow": {"survivor": [[0, 2, 2], [1, 3, 2]],
-                   "joiner": [[1, 3, 2]]}}
+          "grow": {"survivor": [[0, 2, 2], [1, 3, 1]],
+                   "joiner": [[1, 3, 1]]}}
 
 
 def elastic_picks(shards, k):
@@ -4826,7 +4852,7 @@ def _p23_same_bits(torch, a, b) -> bool:
         a.contiguous().view(width), b.contiguous().view(width))
 
 
-def _p23_bits(torch, tmp, which):
+def _p23_bits(torch, tmp, which, label="phase 23"):
     """The bit check across the rank processes: every ring op that all
     three ranks kept (by device epoch and the table's op number) gives
     the three ranks the same bits, and those are the bits of
@@ -4845,7 +4871,7 @@ def _p23_bits(torch, tmp, which):
     full = sorted(k for k, v in kept.items()
                   if sorted(v) == list(range(W3_RANKS)))
     if len(full) < 2:
-        raise AssertionError(f"phase 23 {which}: ring ops kept by every "
+        raise AssertionError(f"{label} {which}: ring ops kept by every "
                              f"rank {full} of {sorted(kept)}")
     for key in full:
         recs = [kept[key][r] for r in range(W3_RANKS)]
@@ -4859,7 +4885,7 @@ def _p23_bits(torch, tmp, which):
                                ("_ring_plain's", plain[r])):
                 if not _p23_same_bits(torch, rec["out"], want):
                     raise AssertionError(
-                        f"phase 23 {which}: op {key} on rank {r} differs "
+                        f"{label} {which}: op {key} on rank {r} differs "
                         f"from {what} bits")
     return [(key, kept[key][0]["x"].numel() * kept[key][0]["x"].element_size())
             for key in full]
@@ -5402,14 +5428,18 @@ def linear_rank(mode, out_dir):
     return 0
 
 
-def kmeans_mixed_rank(out_dir):
+def kmeans_mixed_rank(out_dir, ring=False):
     """One rank process of phase 24 (c) (``chip_smoke.py
     --phase24-kmeans DIR``) under ``torchrun`` with the port's tracker
     in RABIT_TRACKER_URI/PORT: its own gloo group, then
     ``rabit_engine="xla"`` over ``pyrobust``, so mixed mode (registered
     as ``dist.get_rank()``); ``kmeans.run`` on phase 17's dense16 third,
     P24_KM_ITERS iterations, each stats allreduce timed on the external
-    group.  Writes a JSON record to DIR."""
+    group.  ``ring`` (phase 25 (c), ``--phase24-kmeans DIR ring``): the
+    same under ``rabit_device_impl=pallas_ring`` at a P25_GATE gate, so
+    that the stats ride B4 across the processes; each ring op keeps its
+    input and result in DIR/bits for the parent's bit check.  Writes a
+    JSON record to DIR."""
     import datetime
 
     import torch
@@ -5420,19 +5450,25 @@ def kmeans_mixed_rank(out_dir):
     from rabit_tpu_torch import engine as engine_mod
     from rabit_tpu_torch.learn import kmeans as km
     from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.ops import ring_allreduce as rg
     from rabit_tpu_torch.parallel.mesh import local_data_slice
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group(
         "gloo", timeout=datetime.timedelta(seconds=P24_GROUP_SEC))
+    ring_kw = (dict(rabit_device_impl="pallas_ring",
+                    rabit_pallas_min_bytes=P25_GATE) if ring else {})
     rabit_tpu_torch.init(rabit_engine="xla", rabit_inner_engine="pyrobust",
-                         rabit_timeout_sec=W3_TIMEOUT)
+                         rabit_timeout_sec=W3_TIMEOUT, **ring_kw)
     eng = engine_mod.get_engine()
     rank = eng.rank
-    rec = dict(rank=rank, dist_rank=dist.get_rank(), adopted=eng._adopted,
-               degraded=eng._degraded, plane=engine_mod.is_device_plane(),
+    rec = dict(rank=rank, dist_rank=dist.get_rank(), pid=os.getpid(),
+               adopted=eng._adopted, degraded=eng._degraded,
+               plane=engine_mod.is_device_plane(),
                external=eng.group is dist.group.WORLD, ops=[], tiers=[],
-               centroids={})
+               centroids={}, table=eng._ring is not None)
+    bits_dir = os.path.join(out_dir, "bits")
+    os.makedirs(bits_dir, exist_ok=True)
     data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
                            picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
     shard = _shard_rows(data, local_data_slice(rank, W3_RANKS, MAIN_ROWS))
@@ -5444,15 +5480,22 @@ def kmeans_mixed_rank(out_dir):
         if not isinstance(buf, torch.Tensor):
             return real_ar(buf, op, prepare_fun)
         before = eng.path_stats["device_ops"]
+        b4 = rg.LAUNCHES["ring_allreduce"]
         _sync(torch)
         t = time.perf_counter()
         out = real_ar(buf, op, prepare_fun)
         _sync(torch)
+        ms = (time.perf_counter() - t) * 1e3
+        path = ("ring" if rg.LAUNCHES["ring_allreduce"] > b4 else
+                "device" if eng.path_stats["device_ops"] > before else "host")
         rec["ops"].append(dict(
-            version=eng.version_number, ms=(time.perf_counter() - t) * 1e3,
-            on=out.device.type, counts=out[:, -1].tolist(),
-            path=("device" if eng.path_stats["device_ops"] > before
-                  else "host")))
+            version=eng.version_number, ms=ms, on=out.device.type,
+            counts=out[:, -1].tolist(), path=path,
+            wait_ms=(eng._ring.last_wait_s * 1e3 if path == "ring"
+                     else None)))
+        if path == "ring":
+            torch.save(dict(x=buf.cpu(), out=out.cpu()), os.path.join(
+                bits_dir, f"{P25_KM_WHICH}.0.{eng._ring.seq}.{rank}.pt"))
         return out
 
     def dense16(*a, **k):
@@ -5471,9 +5514,10 @@ def kmeans_mixed_rank(out_dir):
     km.run(shard, K, P24_KM_ITERS, compute_dtype="bfloat16",
            device=P24_DEVICE)
     _sync(torch)
-    rec.update(launches=dict(kk.LAUNCHES), stats=dict(eng.path_stats),
-               backend=eng.backend)
-    with open(os.path.join(out_dir, f"kmeans.{rank}.json"), "w") as f:
+    rec.update(launches=dict(kk.LAUNCHES, **rg.LAUNCHES),
+               stats=dict(eng.path_stats), backend=eng.backend)
+    name = f"{P25_KM_WHICH if ring else 'kmeans'}.{rank}.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(rec, f)
     rabit_tpu_torch.finalize()
     dist.destroy_process_group()
@@ -5508,10 +5552,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _linear_death(tmp):
-    """Phase 24 (b)'s death: three plain rank processes on one group
-    (MASTER_ADDR/MASTER_PORT, so no agent tears the job down); returns
-    the survivors' records and the death time."""
+def _linear_death(tmp, args=("--phase24-linear", "death"), prefix="death"):
+    """Phase 24 (b)'s death (phase 25 (b)'s with ``args``): three plain
+    rank processes on one group (MASTER_ADDR/MASTER_PORT, so no agent
+    tears the job down); returns the survivors' records (``prefix``.RANK
+    .json in ``tmp``) and the death time."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("RABIT_")}
     env.update(PYTHONPATH=ROOT, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(W3_RANKS))
@@ -5519,8 +5564,8 @@ def _linear_death(tmp):
     try:
         for r in range(W3_RANKS):
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--phase24-linear", "death", tmp], cwd=ROOT,
+                [sys.executable, os.path.abspath(__file__), *args, tmp],
+                cwd=ROOT,
                 env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                 text=True))
@@ -5532,13 +5577,13 @@ def _linear_death(tmp):
                 p.wait()
     errs = [p.stderr.read()[-2000:] for p in procs]
     if codes != [0, -signal.SIGKILL, 0]:
-        raise AssertionError(f"phase 24 (b) death: exit codes {codes} (want "
+        raise AssertionError(f"{' '.join(args)}: exit codes {codes} (want "
                              f"0, -SIGKILL, 0):\n" + "\n".join(errs))
     with open(os.path.join(tmp, "killed")) as f:
         killed = float(f.read())
     recs = []
     for r in (0, 2):
-        with open(os.path.join(tmp, f"death.{r}.json")) as f:
+        with open(os.path.join(tmp, f"{prefix}.{r}.json")) as f:
             recs.append(json.load(f))
     return recs, killed
 
@@ -5800,6 +5845,552 @@ def phase24(torch, w3, p23):
     out["kmeans_stats_dense"] = [rec["launches"]["kmeans_stats_dense"]
                                  for rec in kms]
     log(f"    phase 24 wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------- pallas_ring over an adopted group, speed_test and traces
+P25_GATE = 4096                    # (b)'s death and (c): the stats ride B4
+P25_STATS = K * 257                # 16,448 float32: the k-means stats
+P25_NUMPY_FLOATS = 1 << 18         # (b)'s numpy payload: 1 MiB, the gate
+P25_DEATH_OP = 3                   # (b) rank 1 dies entering its 3rd ring op
+P25_RING_REPS = 50                 # (d) back-to-back ring ops, traced
+P25_KM_WHICH = "kmeans-mixed"      # (c)'s records and kept ring ops
+P25_RUN_ITERS = 6                  # (d) the traced dense16 run(), as phase 5
+P25_FOLD = "fold_kernel"           # B4's kernel in the traces
+
+
+def _grid_leg(torch, eng, rg, world, leg, tag):
+    """speed_test's device leg over its runner's grid on ``eng``, each
+    tensor allreduce's result kept: per size, the results, the B4
+    launches, and the last MAX and SUM results checked (``world`` and
+    ``world (world + 1) / 2`` at every element) and summed into a CRC
+    for the parent's check across the ranks."""
+    from rabit_tpu_torch.ops import ReduceOp
+    from rabit_tpu_torch.tools import speed_test
+    from rabit_tpu_torch.tools.speed_runner import GRID
+
+    outs = {}
+    real = eng.allreduce
+
+    def allreduce(buf, op, prepare_fun=None):
+        out = real(buf, op, prepare_fun)
+        if isinstance(buf, torch.Tensor):
+            outs[ReduceOp(op).name] = out
+        return out
+    eng.allreduce = allreduce
+    try:
+        for ndata, nrep in GRID:
+            b4 = rg.LAUNCHES["ring_allreduce"]
+            res = speed_test.run(ndata, nrep, device=True)
+            want = {"MAX": float(world), "SUM": world * (world + 1) / 2}
+            for name, value in want.items():
+                out = outs.pop(name)
+                if out.shape != (ndata,) or out.device.type != "cuda" or \
+                        not bool((out == value).all()):
+                    raise AssertionError(
+                        f"phase 25 {tag} {leg} {ndata}: {name} gave "
+                        f"{out.unique()[:4].tolist()} on {out.device}, want "
+                        f"{value}")
+            leg_rec = dict(results=res,
+                           ring_ops=rg.LAUNCHES["ring_allreduce"] - b4,
+                           crc=zlib.crc32(out.cpu().numpy().tobytes()))
+            yield f"{leg} {ndata}", leg_rec
+    finally:
+        del eng.allreduce
+
+
+def speed_rank(mode, out_dir):
+    """One rank process of phase 25 (``chip_smoke.py --phase25-rank MODE
+    DIR``).  ``tracker`` (a): under the port's ``launch_local``,
+    ``rabit_engine="xla"`` over ``pyrobust`` with ``pallas_ring``;
+    speed_test's device leg over its runner's grid twice on one engine,
+    first with the gate past every size (so psum: gloo), then at the 1 MiB
+    default (10^6 floats on the ring); then rank 0 traces P25_RING_REPS
+    back-to-back ring ops of the stats (the others run the same ops)
+    and times B4 alone on the table's last inboxes.  ``adopt`` (b):
+    under ``torchrun``, its own gloo group, adopt mode: the leg under
+    psum, ``finalize``, then again under ``pallas_ring`` (a second
+    adopt), and a numpy payload of P25_NUMPY_FLOATS over the gate.
+    ``death`` (b): a plain process on one group, ``pallas_ring`` at
+    P25_GATE; rank 1 SIGKILLs itself entering its P25_DEATH_OP-th ring
+    op, and the survivors must raise RuntimeError.  Writes a JSON record
+    to DIR."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.ops import SUM
+    from rabit_tpu_torch.ops import ring_allreduce as rg
+    from rabit_tpu_torch.utils import profiler
+
+    if mode != "tracker":
+        dist.init_process_group(
+            "gloo", timeout=datetime.timedelta(seconds=P24_GROUP_SEC))
+    kw = dict(rabit_engine="xla", rabit_device_impl="pallas_ring")
+    if mode == "tracker":
+        kw.update(rabit_inner_engine="pyrobust", rabit_timeout_sec=W3_TIMEOUT)
+    if mode == "death":
+        kw["rabit_pallas_min_bytes"] = P25_GATE
+    rec = dict(mode=mode, legs={}, tables={}, pid=os.getpid())
+    path = os.path.join(out_dir, f"{mode}.{{rank}}.json")
+
+    def dump(rank):
+        rec.setdefault("b4", rg.LAUNCHES["ring_allreduce"])
+        with open(path.format(rank=rank), "w") as f:
+            json.dump(rec, f)
+
+    if mode == "death":
+        rabit_tpu_torch.init(**kw)
+        eng = engine_mod.get_engine()
+        rank = rec["rank"] = eng.rank
+        rec["table"] = eng._ring is not None
+        x = torch.full((P25_STATS,), rank + 1.0, device="cuda")
+        try:
+            for i in range(P25_DEATH_OP):
+                if rank == 1 and i == P25_DEATH_OP - 1:
+                    with open(os.path.join(out_dir, "killed"), "w") as f:
+                        f.write(repr(time.monotonic()))
+                    os.kill(os.getpid(), signal.SIGKILL)
+                rabit_tpu_torch.allreduce(x, SUM)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            rec.update(raised=str(e), raised_at=time.monotonic(), op=i + 1,
+                       cause=type(e.__cause__).__name__,
+                       degraded=eng._degraded)
+        dump(rank)
+        os._exit(0)                # the group is broken: skip its teardown
+
+    impls = ("psum", "pallas_ring")
+    if mode == "tracker":
+        rabit_tpu_torch.init(**kw)
+        eng = engine_mod.get_engine()
+    for impl in impls:
+        if mode == "adopt":
+            rabit_tpu_torch.init(**dict(kw, rabit_device_impl=impl))
+            eng = engine_mod.get_engine()
+        else:
+            # one engine for both legs: psum is the gate past every size
+            eng._pallas_min_bytes = (1 << 62 if impl == "psum" else 1 << 20)
+        rank, world = eng.rank, eng.world_size
+        rec.update(rank=rank, world=world, backend=eng.backend,
+                   adopted=eng._adopted)
+        rec["tables"][impl] = eng._ring is not None
+        rec["legs"].update(_grid_leg(torch, eng, rg, world, impl, mode))
+        if mode == "adopt" and impl == "pallas_ring":
+            a = np.full(P25_NUMPY_FLOATS, rank + 1.0, np.float32)
+            b4 = rg.LAUNCHES["ring_allreduce"]
+            out = rabit_tpu_torch.allreduce(a, SUM)
+            rec["numpy"] = dict(in_place=out is a, ring_ops=rg.LAUNCHES[
+                "ring_allreduce"] - b4, all_six=bool((a == 6.0).all()))
+        if mode == "adopt":
+            rabit_tpu_torch.finalize()
+            rec["tables"][impl + " after finalize"] = [
+                eng._ring, eng._ring_orphans, eng.group] == [None, [], None]
+    if mode == "tracker":
+        eng._pallas_min_bytes = P25_GATE
+        x = torch.full((P25_STATS,), rank + 1.0, device="cuda")
+        for _ in range(3):
+            rabit_tpu_torch.allreduce(x, SUM)
+        torch.cuda.synchronize()
+        b4 = rg.LAUNCHES["ring_allreduce"]
+        waits, calls, window = [], [], []
+
+        def loop():
+            # a host barrier first: rank 0's profiler starts in seconds
+            rabit_tpu_torch.allreduce(np.zeros(1), SUM)
+            t = time.perf_counter()
+            for _ in range(P25_RING_REPS):
+                t1 = time.perf_counter()
+                rabit_tpu_torch.allreduce(x, SUM)
+                calls.append((time.perf_counter() - t1) * 1e3)
+                waits.append(eng._ring.last_wait_s * 1e3)
+            torch.cuda.synchronize()
+            window.append((time.perf_counter() - t) * 1e3)
+        if rank == 0:
+            with profiler.trace(os.path.join(out_dir, "trace.ring")) as tr:
+                loop()
+            busy = profiler.device_busy(tr.path)
+            with open(tr.path) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("ph") == "X" and e.get("cat") in
+                          ("kernel", "gpu_memcpy")]
+            fold = [e["dur"] / 1e3 for e in events
+                    if P25_FOLD in e["name"]]
+            copy = [e["dur"] / 1e3 for e in events
+                    if e["cat"] == "gpu_memcpy" and "DtoD" in e["name"]]
+            rec["trace"] = dict(share=busy["share"],
+                                busy_ms=busy["busy_us"] / 1e3,
+                                trace_window_ms=busy["window_us"] / 1e3,
+                                fold_ms=fold, copy_ms=copy,
+                                names=sorted(busy["by_name"]))
+        else:
+            loop()
+        rec["ring_loop"] = dict(ops=rg.LAUNCHES["ring_allreduce"] - b4,
+                                call_ms=calls, wait_ms=waits,
+                                window_ms=window[0])
+        rec["b4"] = rg.LAUNCHES["ring_allreduce"]     # the path's launches
+        # B4 alone on the table's last inboxes (their contents stay: every
+        # rank holds at the barrier below), with CUDA events
+        ring = eng._ring
+        inboxes = [ring._peers[q][ring.seq % 2] for q in range(world)]
+        out = torch.empty(P25_STATS, device="cuda")
+        if rank == 0:
+            rec["kernel_alone_ms"] = time_ms(torch, lambda: (
+                rg.ring_allreduce_peer(inboxes, P25_STATS, SUM, out)))
+            if not bool((out == world * (world + 1) / 2).all()):
+                raise AssertionError("phase 25 (d): B4 alone on the inboxes "
+                                     "gave a wrong sum")
+        rabit_tpu_torch.allreduce(np.zeros(1), SUM)       # the barrier
+        rabit_tpu_torch.finalize()
+        rec["tables"]["closed"] = [eng._ring, eng._ring_orphans] == [None, []]
+    dump(rank)
+    if mode == "adopt":
+        dist.destroy_process_group()
+    return 0
+
+
+def _p25_records(tmp, mode):
+    recs = []
+    for r in range(W3_RANKS):
+        with open(os.path.join(tmp, f"{mode}.{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _p25_grid(recs, tag):
+    """(a)'s and (b)'s checks over the ranks' records: every size ran,
+    10^6 floats (and nothing smaller) rode the ring under pallas_ring and
+    nothing did under psum, the results' CRCs equal across the ranks.
+    Returns {leg: (allreduce_sum ms, bus GB/s)} from rank 0's results."""
+    from rabit_tpu_torch.tools.speed_runner import GRID
+
+    out = {}
+    for leg in ("psum", "pallas_ring"):
+        for ndata, nrep in GRID:
+            key = f"{leg} {ndata}"
+            cells = [rec["legs"][key] for rec in recs]
+            ring = leg == "pallas_ring" and ndata * 4 >= 1 << 20
+            if [c["ring_ops"] for c in cells] != [2 * (nrep + 1) * ring] * \
+                    W3_RANKS:
+                raise AssertionError(f"phase 25 {tag} {key}: B4 launches "
+                                     f"{[c['ring_ops'] for c in cells]}")
+            if len({c["crc"] for c in cells}) != 1:
+                raise AssertionError(f"phase 25 {tag} {key}: results differ "
+                                     "between the ranks")
+            r = cells[0]["results"]
+            out[key] = {name: (r[name]["sec_mean"] * 1e3,
+                               r[name].get("bus_gbps"))
+                        for name in ("allreduce_max", "allreduce_sum",
+                                     "broadcast")}
+    return out
+
+
+def _p25_table(grid):
+    from rabit_tpu_torch.tools.speed_runner import GRID
+
+    return "; ".join(
+        f"{n} floats: allreduce_sum psum {grid[f'psum {n}']['allreduce_sum'][0]:.4f} "
+        f"ms ({grid[f'psum {n}']['allreduce_sum'][1]:.3f} GB/s bus) / "
+        f"pallas_ring {grid[f'pallas_ring {n}']['allreduce_sum'][0]:.4f} ms "
+        f"({grid[f'pallas_ring {n}']['allreduce_sum'][1]:.3f}), max "
+        f"{grid[f'psum {n}']['allreduce_max'][0]:.4f} / "
+        f"{grid[f'pallas_ring {n}']['allreduce_max'][0]:.4f} ms"
+        for n, _ in GRID)
+
+
+def _ring_files(pids):
+    """The ``rabit_ring.*`` files in the shared-memory directory made by
+    the processes ``pids`` (a table's files carry their maker's pid, the
+    page rank 0's), so that another job's on this host are not counted."""
+    from rabit_tpu_torch.parallel.peer_ring import shm_dir
+
+    marks = [f".{pid}." for pid in pids]
+    return sorted(n for n in os.listdir(shm_dir())
+                  if n.startswith("rabit_ring.")
+                  and any(m in n for m in marks))
+
+
+def p25_traces(torch, km, kk):
+    """Phase 25 (d)'s windows in this process: one dense16 ``run()`` at
+    world 1 on phase 17's rows (phase 5's widths and seed), and one
+    L-BFGS iteration at world 1 on phase 24 (a)'s rows (the second: the
+    first stages the ELL blocks), each traced with ``profiler.trace``;
+    returns each window's wall, busy share and time by kernel."""
+    import rabit_tpu_torch
+    from rabit_tpu_torch.utils import profiler
+
+    logdir = os.path.join(os.environ["CHIP_SMOKE_RUN"], "traces")
+    out = {}
+    data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                           picks=world3_picks(MAIN_ROWS, K, W3_RANKS))
+    rabit_tpu_torch.init(rabit_engine="empty")
+    try:
+        for key in kk.LAUNCHES:
+            kk.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profiler.trace(logdir) as tr:
+            model = km.run(data, K, P25_RUN_ITERS, device_chain=3,
+                           compute_dtype="bfloat16", device=P24_DEVICE)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        rabit_tpu_torch.finalize()
+    if kk.LAUNCHES["kmeans_stats_dense"] < P25_RUN_ITERS or not (
+            np.isfinite(model.centroids).all()
+            and model.centroids.shape == (K, 256)):
+        raise AssertionError(f"phase 25 (d) run(): launches {kk.LAUNCHES}")
+    out["dense16 run()"] = dict(wall_s=wall, b1=kk.LAUNCHES[
+        "kmeans_stats_dense"], **profiler.device_busy(tr.path))
+    del data, model
+
+    data = linear_rows()
+    rabit_tpu_torch.init(rabit_engine="empty")
+    try:
+        obj = linear_objective(data)
+        obj.lbfgs.init()
+        obj.lbfgs.update_one_iter()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profiler.trace(logdir) as tr:
+            obj.lbfgs.update_one_iter()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        objvals = list(obj.objvals)
+    finally:
+        rabit_tpu_torch.finalize()
+    if len(objvals) != 3 or not objvals[2] < objvals[1] < objvals[0]:
+        raise AssertionError(f"phase 25 (d) L-BFGS: objective {objvals}")
+    out["L-BFGS iteration"] = dict(wall_s=wall, **profiler.device_busy(
+        tr.path))
+    del obj, data
+    return out
+
+
+def _busy_line(name, b):
+    top = sorted(b["by_name"].items(), key=lambda kv: -kv[1][0])[:4]
+    return (f"{name}: window {b['window_us'] / 1e3:.3f} ms, device busy "
+            f"{b['busy_us'] / 1e3:.3f} ms = {100 * b['share']:.2f} % "
+            f"(kernels {b['by_category_us']['kernel'] / 1e3:.3f}, copies "
+            f"{b['by_category_us']['gpu_memcpy'] / 1e3:.3f}, memsets "
+            f"{b['by_category_us']['gpu_memset'] / 1e3:.3f} ms); most time: "
+            + ", ".join(f"{n[:48]} {us / 1e3:.3f} ms x{c}"
+                        for n, (us, c) in top))
+
+
+def phase25(torch, w3, p24, km, kk):
+    """Phase 25: ``pallas_ring`` over an adopted group, the port's
+    speed_test on the device plane, and traces.  (a) speed_test's device
+    leg at world 3 under ``launch_local`` (``--phase25-rank tracker``):
+    psum and pallas_ring side by side over its runner's grid, every
+    result checked and equal across the ranks; (b) the same under
+    ``torchrun`` in adopt mode (``--phase25-rank adopt``), with a numpy
+    payload over the gate on the ring; then three plain processes at a
+    P25_GATE gate where rank 1 SIGKILLs itself entering a ring op, both
+    survivors raising RuntimeError within P24_RAISE_SEC; (c) phase 24
+    (c)'s k-means job in mixed mode under pallas_ring at P25_GATE: every
+    stats op on the ring, bit-identical across the ranks and to B4 and
+    its plain version, counts and centroids as phase 24's; (d) traces of
+    a dense16 ``run()`` and an L-BFGS iteration at world 1 and of (a)'s
+    back-to-back ring ops, their device busy shares and the ring op's
+    split.  No ring file is left.  Returns B1's and B4's launches and
+    the ring's figures."""
+    from rabit_tpu_torch.tracker.tracker import Tracker
+
+    t0 = time.perf_counter()
+    log(f"[25] pallas_ring over an adopted group (torchrun, adopt and mixed "
+        f"modes), speed_test on the device plane (tracker and adopt), "
+        f"traces | nvidia-smi: {smi_line()}")
+    pids = []                          # the ranks' processes: their ring files
+    out = {"b4": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) tracker mode
+        code, secs = _launch_ranks("25", "tracker", tmp)
+        if code != 0:
+            raise AssertionError(f"phase 25 (a): the launcher returned "
+                                 f"{code}")
+        recs = _p25_records(tmp, "tracker")
+        pids += [rec["pid"] for rec in recs]
+        grid_a = _p25_grid(recs, "(a)")
+        for r, rec in enumerate(recs):
+            if (rec["rank"], rec["world"], rec["backend"]) != (
+                    r, W3_RANKS, "gloo") or rec["tables"] != {
+                        "psum": True, "pallas_ring": True, "closed": True} \
+                    or rec["ring_loop"]["ops"] != P25_RING_REPS:
+                raise AssertionError(f"phase 25 (a) rank {r}: {rec['tables']}"
+                                     f", ring loop {rec['ring_loop']['ops']}")
+        out["b4"]["speed tracker"] = [rec["b4"] for rec in recs]
+        log(f"    (a) speed_test device leg, world {W3_RANKS}, tracker mode "
+            f"(xla over pyrobust, gloo on CUDA tensors): launcher returned 0 "
+            f"in {secs:.1f} s; MAX = {W3_RANKS} and SUM = "
+            f"{W3_RANKS * (W3_RANKS + 1) // 2} at every element, the same "
+            f"bits on the three ranks; B4 by rank {out['b4']['speed tracker']}"
+            f" (10^6 floats on the ring at the 1 MiB gate); rank 0, mean a "
+            f"call: {_p25_table(grid_a)}")
+        tr = recs[0]["trace"]
+        if (len(tr["fold_ms"]), len(tr["copy_ms"])) != (P25_RING_REPS,
+                                                        P25_RING_REPS):
+            raise AssertionError(
+                f"phase 25 (d): the trace holds {len(tr['fold_ms'])} folds "
+                f"and {len(tr['copy_ms'])} D2D copies of {P25_RING_REPS} "
+                f"ring ops; kernels seen: {tr['names'][:6]}")
+        loop = [rec["ring_loop"] for rec in recs]
+        split = dict(
+            call_ms=statistics.median(loop[0]["call_ms"]),
+            per_op_ms=loop[0]["window_ms"] / P25_RING_REPS,
+            wait_ms=statistics.median(loop[0]["wait_ms"]),
+            copy_ms=statistics.median(tr["copy_ms"]),
+            fold_ms=statistics.median(tr["fold_ms"]),
+            kernel_alone_ms=recs[0]["kernel_alone_ms"],
+            share=tr["share"],
+            waits_by_rank=[statistics.median(x["wait_ms"]) for x in loop],
+            per_op_by_rank=[x["window_ms"] / P25_RING_REPS for x in loop])
+        out["ring_split"] = split
+
+        # (b) torchrun, adopt mode
+        secs_b = _torchrun(["--phase25-rank", "adopt", tmp])
+        recs = _p25_records(tmp, "adopt")
+        pids += [rec["pid"] for rec in recs]
+        grid_b = _p25_grid(recs, "(b)")
+        for r, rec in enumerate(recs):
+            if (rec["rank"], rec["world"], rec["backend"]) != (
+                    r, W3_RANKS, "gloo") or not rec["adopted"] or \
+                    rec["tables"] != {"psum": False, "pallas_ring": True,
+                                      "psum after finalize": True,
+                                      "pallas_ring after finalize": True} \
+                    or rec["numpy"] != {"in_place": True, "ring_ops": 1,
+                                        "all_six": True}:
+                raise AssertionError(f"phase 25 (b) rank {r}: {rec['tables']}"
+                                     f", numpy {rec.get('numpy')}")
+        out["b4"]["speed adopt"] = [rec["b4"] for rec in recs]
+        log(f"    (b) the same under torchrun (adopt mode, gloo; psum, "
+            f"finalize, then pallas_ring adopted again): {secs_b:.1f} s; "
+            f"checks as (a); a numpy payload of {P25_NUMPY_FLOATS * 4} B "
+            f"rode the ring in place on every rank; B4 by rank "
+            f"{out['b4']['speed adopt']}; rank 0, mean a call: "
+            f"{_p25_table(grid_b)}")
+        survivors, killed = _linear_death(
+            tmp, ("--phase25-rank", "death"), "death")
+        raise_s = [rec["raised_at"] - killed for rec in survivors]
+        pids += [rec["pid"] for rec in survivors]    # rank 0's has the page
+        for rec in survivors:
+            if "no host transport" not in rec["raised"] or \
+                    rec["cause"] != "PeerError" or rec["degraded"] or \
+                    rec["op"] != P25_DEATH_OP or not rec["table"]:
+                raise AssertionError(f"phase 25 (b) death: rank "
+                                     f"{rec['rank']} {rec}")
+        if not all(0 <= s < P24_RAISE_SEC for s in raise_s):
+            raise AssertionError(f"phase 25 (b) death -> raise {raise_s} s "
+                                 f"(bar {P24_RAISE_SEC} s)")
+        out["b4"]["death"] = {str(rec["rank"]): rec["b4"]
+                              for rec in survivors}
+        log(f"    (b) three plain processes, pallas_ring at a {P25_GATE} B "
+            f"gate, rank 1 SIGKILLed entering ring op {P25_DEATH_OP}: the "
+            f"start barrier gave up (PeerError) and ranks 0 and 2 raised "
+            f"RuntimeError after {[round(s, 3) for s in raise_s]} s (phase "
+            f"24 (b)'s gloo death: "
+            f"{[round(s, 3) for s in p24['linear_death_raise_s']]} s); B4 "
+            f"by survivor {out['b4']['death']}")
+        out["death_raise_s"] = raise_s
+
+        # (c) mixed mode, k-means under pallas_ring
+        pin = os.environ.get("RABIT_TRACKER_PIN_RANKS")
+        os.environ["RABIT_TRACKER_PIN_RANKS"] = "1"
+        tracker = Tracker(W3_RANKS, host="127.0.0.1", port=0)
+        tracker.start()
+        try:
+            secs_c = _torchrun(["--phase24-kmeans", tmp, "ring"], {
+                "RABIT_TRACKER_URI": "127.0.0.1",
+                "RABIT_TRACKER_PORT": str(tracker.port)})
+            tracker.join(30)
+        finally:
+            tracker.stop()
+            if pin is None:
+                os.environ.pop("RABIT_TRACKER_PIN_RANKS")
+            else:
+                os.environ["RABIT_TRACKER_PIN_RANKS"] = pin
+        kms = _p25_records(tmp, P25_KM_WHICH)
+        pids += [rec["pid"] for rec in kms]
+        for r, rec in enumerate(kms):
+            tag = f"phase 25 (c) rank {r}"
+            if (rec["rank"], rec["dist_rank"]) != (r, r) or not (
+                    rec["adopted"] and rec["plane"] and rec["external"]
+                    and rec["table"]) or rec["degraded"] or \
+                    rec["backend"] != "gloo":
+                raise AssertionError(f"{tag}: {rec}")
+            if [o["path"] for o in rec["ops"]] != ["ring"] * P24_KM_ITERS or \
+                    rec["stats"]["host_ops"] or rec["tiers"] != ["dense16"] \
+                    or rec["launches"]["ring_allreduce"] != P24_KM_ITERS:
+                raise AssertionError(f"{tag}: ops {rec['ops']}, "
+                                     f"{rec['stats']}, {rec['launches']}")
+            for it, o in enumerate(rec["ops"]):
+                if sum(o["counts"]) != MAIN_ROWS or (
+                        it < W3_KM_ITERS and o["counts"]
+                        != w3["oracle_counts"][it]):
+                    raise AssertionError(f"{tag}: iteration {it + 1} counted "
+                                         f"{sum(o['counts'])} rows")
+            if rec["launches"]["kmeans_stats_dense"] != P24_KM_ITERS:
+                raise AssertionError(f"{tag}: launches {rec['launches']}")
+        keys = _p23_bits(torch, tmp, P25_KM_WHICH, "phase 25 (c)")
+        if len(keys) != P24_KM_ITERS:
+            raise AssertionError(f"phase 25 (c): bit-checked ops {keys}")
+        v3 = [np.asarray(rec["centroids"][str(W3_KM_ITERS)], np.float32)
+              for rec in kms]
+        p17 = np.asarray(w3["centroids"], np.float32)
+        if any(not np.array_equal(c, v3[0]) for c in v3) or \
+                not np.allclose(v3[0], p17, rtol=SUM_RTOL, atol=SUM_ATOL):
+            raise AssertionError(f"phase 25 (c): version-{W3_KM_ITERS} "
+                                 f"centroids off phase 17's by "
+                                 f"{float(np.abs(v3[0] - p17).max())}")
+        ms = [o["ms"] for rec in kms for o in rec["ops"]]
+        waits = [o["wait_ms"] for rec in kms for o in rec["ops"]]
+        out["b4"]["kmeans mixed"] = [rec["launches"]["ring_allreduce"]
+                                     for rec in kms]
+        out["b1_mixed"] = [rec["launches"]["kmeans_stats_dense"]
+                           for rec in kms]
+        out["mixed_ring_ms"] = ms
+        log(f"    (c) k-means in mixed mode under pallas_ring (gate "
+            f"{P25_GATE} B), Tracker({W3_RANKS}) and torchrun's gloo group: "
+            f"{secs_c:.1f} s; every stats op ({P23_STATS_BYTES} B) on the "
+            f"ring, ops {[k for k, _ in keys]} bit-identical on the three "
+            f"ranks and to ring_allreduce_p2p and _ring_plain; each counting "
+            f"{MAIN_ROWS} rows, iterations 1-3 phase 17's counts, version 3 "
+            f"within {float(np.abs(v3[0] - p17).max()):.3g} of phase 17's; "
+            f"the stats op median {statistics.median(ms):.3f} ms "
+            f"{[round(t, 3) for t in ms]} (barrier wait "
+            f"{[round(t, 3) for t in waits]}), phase 24 (c)'s on gloo "
+            f"{statistics.median(p24['mixed_stats_ms']):.3f} ms; B1 by rank "
+            f"{out['b1_mixed']}, B4 by rank {out['b4']['kmeans mixed']}")
+    left = _ring_files(pids)
+    if left:
+        raise AssertionError(f"phase 25 left ring files {left}")
+
+    # (d) traces
+    t = time.perf_counter()
+    busy = p25_traces(torch, km, kk)
+    busy["ring ops"] = dict(share=split["share"])
+    out["busy"] = {k: v["share"] for k, v in busy.items()}
+    for name in ("dense16 run()", "L-BFGS iteration"):
+        b = busy[name]
+        log(f"    (d) {_busy_line(name, b)}; wall {b['wall_s']:.3f} s")
+    log(f"    (d) {P25_RING_REPS} back-to-back ring ops of the ({K}, 257) "
+        f"stats, rank 0 of (a)'s job: device busy {100 * split['share']:.2f} "
+        f"% of the window; an op {split['per_op_ms']:.4f} ms (the loop / "
+        f"{P25_RING_REPS}; a call {split['call_ms']:.4f} ms median) = the "
+        f"D2D copy {split['copy_ms']} ms on the card + the host wait to the "
+        f"barrier's pass {split['wait_ms']:.4f} ms + ring_allreduce_peer "
+        f"{split['fold_ms']} ms on the card (traced, medians) + the rest on "
+        f"the host (the copy's synchronize, the launch, Python); B4 alone "
+        f"on the table's inboxes, one call with its host work (CUDA "
+        f"events) {split['kernel_alone_ms']:.4f} ms; by rank: an op "
+        f"{[round(x, 4) for x in split['per_op_by_rank']]} ms, the wait "
+        f"{[round(x, 4) for x in split['waits_by_rank']]} ms "
+        f"({time.perf_counter() - t:.1f} s)")
+    log(f"    phase 25 wall {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -6321,6 +6912,22 @@ def main() -> int:
         if line["name"] == "kmeans_stats_dense":
             line["phase24_launches_by_rank"] = p24["kmeans_stats_dense"]
     log(f"    phase 24 took {time.perf_counter() - t0:.1f} s")
+
+    # 25. pallas_ring over an adopted group (adopt and mixed modes),
+    # speed_test on the device plane, and traces
+    t0 = time.perf_counter()
+    p25 = phase25(torch, w3, p24, km, kk)
+    for line in lines:
+        if line["name"] == "kmeans_stats_dense":
+            line["phase25_mixed_launches_by_rank"] = p25["b1_mixed"]
+        if line["name"] == "ring_allreduce":
+            line["phase25_launches_by_job_and_rank"] = p25["b4"]
+            line["phase25_across_processes"] = dict(
+                split=p25["ring_split"], mixed_stats_ms=p25["mixed_ring_ms"],
+                death_to_raise_s=p25["death_raise_s"],
+                kernel_alone_ms=p25["ring_split"]["kernel_alone_ms"])
+            line["phase25_device_busy_share"] = p25["busy"]
+    log(f"    phase 25 took {time.perf_counter() - t0:.1f} s")
     log(f"    run directory: {cache_gain()}")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
@@ -6345,7 +6952,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase24-linear"]:
         sys.exit(linear_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase24-kmeans"]:
-        sys.exit(kmeans_mixed_rank(sys.argv[2]))
+        sys.exit(kmeans_mixed_rank(sys.argv[2], sys.argv[3:4] == ["ring"]))
+    if sys.argv[1:2] == ["--phase25-rank"]:
+        sys.exit(speed_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-rank"]:
         sys.exit(elastic_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-grow"]:

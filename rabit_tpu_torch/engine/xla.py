@@ -89,14 +89,27 @@ failure.  A ring library that does not load, or CUDA IPC that this host
 refuses, is no peer's failure: ``init`` probes both on a rank with a
 card and raises.
 
+Over an adopted group (adopt and mixed modes) the ring runs as the
+reference's does in every mode: the table lives on this rank's card
+whatever the group's backend (``torchrun`` on one card must use gloo,
+whose tensors are the CPU's), built once at start (in mixed mode only
+once the start consensus found the ranks aligned) after one allgather
+on the group of every rank's card and the cards it reaches
+(:func:`ring_holds`).  In adopt mode a numpy payload that the gate lets
+through goes to the card, through the ring, and back in place.  A
+peer's death raises :class:`RuntimeError` in adopt mode and degrades
+the job for good in mixed mode; the table is never rebuilt.  Shutdown
+closes it in order: the peers' handles, a barrier (the group's in adopt
+mode, the host plane's in mixed mode), then the inboxes.
+
 Left out, each raising :class:`NotImplementedError` that names its
-ROADMAP item: ``pallas_ring`` in adopt and mixed modes, A7b; the
-``native`` inner engine, the ``mpi`` CPU collectives, telemetry and
-tracing, A8.
+ROADMAP item: the ``native`` inner engine, the ``mpi`` CPU collectives,
+telemetry and tracing, A8.
 """
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import socket
 import sys
@@ -194,19 +207,38 @@ def device_identity_of(index: int) -> str:
     return f"cuda:{torch.cuda.get_device_properties(index).uuid}"
 
 
-def ring_reachable(devices: list[str]) -> bool:
-    """Whether this rank can read every rank's card: each card in
-    ``devices`` (CUDA identities as :func:`device_identity` gives them)
-    is this rank's own or visible here with peer access from it."""
-    local = {device_identity_of(i): i
-             for i in range(torch.cuda.device_count())}
+def reachable_cards() -> list[str]:
+    """The cards this rank can read, as :func:`device_identity` names
+    them: its own, and each card visible here with peer access from
+    it."""
     me = torch.cuda.current_device()
-    for d in set(devices):
-        i = local.get(d)
-        if i is None or (i != me and
-                         not torch.cuda.can_device_access_peer(me, i)):
-            return False
-    return True
+    return [device_identity_of(i) for i in range(torch.cuda.device_count())
+            if i == me or torch.cuda.can_device_access_peer(me, i)]
+
+
+#: one rank's record in the ring's holding exchange: its card and the
+#: cards it reaches, as JSON, padded to one length on every rank
+REACH_BYTES = peer_ring.SLOT_BYTES * (2 + peer_ring.MAX_PEERS)
+
+
+def reach_record(identity: str, reach: list[str]) -> bytes:
+    raw = json.dumps([identity, sorted(reach)]).encode()
+    check(len(raw) <= REACH_BYTES, "pallas_ring: %d cards do not fit the "
+          "holding exchange's record", len(reach))
+    return raw.ljust(REACH_BYTES, b"\0")
+
+
+def ring_holds(records: list) -> bool:
+    """Whether the plane holds the ring, from every rank's
+    :func:`reach_record` in rank order: every rank on CUDA, at most the
+    kernel's ranks, and each rank reaching every rank's card.  Every
+    rank decides from the same records, so every rank gets the same
+    answer."""
+    entries = [json.loads(bytes(r).rstrip(b"\0")) for r in records]
+    devices = {card for card, _ in entries}
+    if "cpu" in devices or len(entries) > peer_ring.MAX_PEERS:
+        return False
+    return all(devices <= set(reach) for _, reach in entries)
 
 
 def new_group(store, rank: int, world: int, backend: str,
@@ -308,12 +340,6 @@ class XLAEngine(Engine):
                         or os.environ.get("RABIT_NUM_TRIAL", 0)),
                     int(os.environ.get("RABIT_RELAUNCH", 0)))
         external = dist.is_available() and dist.is_initialized()
-        if self._device_impl == "pallas_ring" and external and (
-                uri or dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "rabit_device_impl='pallas_ring' on an externally "
-                "initialised torch.distributed group (adopt and mixed "
-                "modes) is not ported to rabit_tpu_torch yet (ROADMAP A7b)")
         if not uri:
             # No tracker: adopt whatever world torch.distributed already
             # lives in (a single process, or torchrun's group).
@@ -325,7 +351,9 @@ class XLAEngine(Engine):
                 self._rank = dist.get_rank()
                 self._world = dist.get_world_size()
                 self._adopted = self._no_host_transport = True
+                self._probe_ring()
                 self._adopt_default_group()
+                self._adopt_ring()
             return
         if external:
             # MIXED mode: register with task_id = the group's rank, so
@@ -367,17 +395,16 @@ class XLAEngine(Engine):
                 "MIXED mode: the tracker keeps the control plane, tensors "
                 "ride the externally initialised torch.distributed group, "
                 "which this engine never re-forms after a failure")
+            self._probe_ring()
             if trial > 0:
                 # the survivors' group no longer holds the previous life
                 self._degraded = True
             else:
                 self._build_group_mixed()
+                if not self._degraded:
+                    self._adopt_ring()
             return
-        if self._device_impl == "pallas_ring" and torch.cuda.is_available():
-            # the ring's library and CUDA IPC on this rank's card, tried
-            # here, outside the runtime-failure filter of formation: a
-            # failure is the job's setting, raised, never a degraded start
-            peer_ring.probe()
+        self._probe_ring()
         if trial > 0:
             # Mid-job relaunch: the group of the first life died with
             # it and the survivors' group cannot admit a new member.
@@ -395,6 +422,14 @@ class XLAEngine(Engine):
                              f"({type(e).__name__}: {e}); starting degraded")
             self._drop_group()
             self._degraded = True
+
+    def _probe_ring(self) -> None:
+        """Under pallas_ring on a rank with a card: the ring's library
+        and CUDA IPC on this card, tried before any table, outside the
+        runtime-failure filter of formation: a failure is the job's
+        setting, raised from ``init``, never a degraded start."""
+        if self._device_impl == "pallas_ring" and torch.cuda.is_available():
+            peer_ring.probe()
 
     @staticmethod
     def _refuse_unported(params: dict) -> None:
@@ -593,35 +628,33 @@ class XLAEngine(Engine):
             + (" (ranks share a card: gloo stages through host memory)"
                if shared else ""))
         if self._device_impl == "pallas_ring":
-            if self._ring_holds(prefixed, devices):
-                self._form_ring(epoch)
-            else:
-                self._log_stderr(
-                    "pallas_ring: the plane cannot hold the ring (a rank "
-                    "on the CPU, or a card some rank cannot reach); "
-                    "allreduces stay on the group")
+            self._hold_ring(epoch)
 
-    def _ring_holds(self, store, devices: list[str]) -> bool:
+    def _hold_ring(self, epoch: int) -> None:
         """Whether the plane holds the ring, the same answer on every
-        rank: every rank on CUDA, at most the kernel's ranks, and where
-        the cards differ every rank able to reach every card (each
-        rank's answer exchanged through ``store``)."""
-        if any(d == "cpu" for d in devices) or \
-                self._world > peer_ring.MAX_PEERS:
-            return False
-        if len(set(devices)) == 1:
-            return True
-        store.set(f"peer/{self._rank}", "1" if ring_reachable(devices)
-                  else "0")
-        return all(store.get(f"peer/{r}") == b"1"
-                   for r in range(self._world))
+        rank (:func:`ring_holds` over one allgather on the group of every
+        rank's card and the cards it reaches), and if it does, the ring's
+        table on this rank's card for device epoch ``epoch``.  The card
+        is asked for only once the rule has passed, so that a rank
+        without one joins the allgather and keeps every rank on the
+        group."""
+        me = device_identity()
+        records = self._exchange_bytes(reach_record(
+            me, [] if me == "cpu" else reachable_cards()))
+        if ring_holds(records):
+            self._form_ring(epoch, self._local_card())
+        else:
+            self._log_stderr(
+                "pallas_ring: the plane cannot hold the ring (a rank on the "
+                "CPU, or a card some rank cannot reach); allreduces stay on "
+                "the group")
 
-    def _form_ring(self, epoch: int) -> None:
-        """Build the ring's table over the group: one allgather of every
-        rank's inbox handles and the barrier's page."""
+    def _form_ring(self, epoch: int, device: torch.device) -> None:
+        """Build the ring's table over the group, on ``device``: one
+        allgather of every rank's inbox handles and the barrier's page."""
         t = time.perf_counter()
         self._ring = peer_ring.PeerRing(
-            self._rank, self._world, self._exchange_bytes, self._device,
+            self._rank, self._world, self._exchange_bytes, device,
             timeout=self._init_timeout, tag=f"{self._job_id}.e{epoch}",
             capacity=self._pallas_min_bytes)
         self.ring_form_ms = (time.perf_counter() - t) * 1e3
@@ -644,12 +677,41 @@ class XLAEngine(Engine):
         self._group.allgather([parts], [t]).wait()
         return [p.cpu().numpy().tobytes() for p in parts]
 
+    def _adopt_ring(self) -> None:
+        """pallas_ring over the adopted group: :meth:`_hold_ring`, the
+        table on this rank's card whatever the group's backend (device
+        epoch 0: the group is never re-formed).  A peer's
+        failure on the way raises in adopt mode and degrades the job in
+        mixed mode."""
+        if self._device_impl != "pallas_ring":
+            return
+        try:
+            self._hold_ring(0)
+        except Exception as e:  # noqa: BLE001 — filtered just below
+            if not _is_runtime_failure(e):
+                raise
+            self._drop_group()
+            if self._no_host_transport:
+                raise RuntimeError(_NO_HOST) from e
+            self._degraded = True
+            self._log_stderr(f"pallas_ring: the table's formation failed "
+                             f"({type(e).__name__}: {e}); running degraded "
+                             "on the host transport for the whole job")
+
+    @staticmethod
+    def _local_card() -> torch.device:
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def _default_group(self):
+        """``torch.distributed``'s default group and its backend."""
+        return dist.group.WORLD, str(dist.get_backend())
+
     def _adopt_default_group(self) -> None:
         """Take ``torch.distributed``'s default group as the device plane
         (adopt and mixed modes): NCCL reduces CUDA tensors on the
         current card, any other backend takes CPU tensors."""
-        backend = str(dist.get_backend())
-        self._group, self._backend = dist.group.WORLD, backend
+        self._group, backend = self._default_group()
+        self._backend = backend
         self._device = (torch.device("cuda", torch.cuda.current_device())
                         if backend == "nccl" else torch.device("cpu"))
         self._member = True
@@ -737,33 +799,73 @@ class XLAEngine(Engine):
         alive (host barrier between the waves).  The ring's peers'
         handles close before the first barrier, so past it every rank's
         inboxes are free to go."""
-        try:
-            if self._ring is not None:
-                self._ring.release_peers()
-        except Exception as e:  # noqa: BLE001 — the teardown goes on
-            self._log_stderr(f"closing the ring's peer handles failed "
-                             f"({type(e).__name__}: {e})")
-        self._control_barrier()
-        try:
-            peer_ring.free_inboxes(self._ring_orphans)
-        except Exception as e:  # noqa: BLE001 — the teardown goes on
-            self._log_stderr(f"freeing a failed table's inboxes failed "
-                             f"({type(e).__name__}: {e})")
+        self._release_ring(self._control_barrier)
         if self._rank != 0:
             self._drop_group(quiet=True)
         self._control_barrier()
         if self._rank == 0:
             self._drop_group(quiet=True)
 
-    def _control_barrier(self) -> None:
+    def _release_ring(self, barrier) -> bool:
+        """The ring's part of an ordered teardown, on every rank (one
+        without a table too, so that ``barrier`` has every rank): this
+        rank's folds waited for and its peers' handles closed, then
+        ``barrier()``, past which no peer folds this rank's inboxes, then
+        the inboxes of earlier tables freed.  Returns whether the barrier
+        passed; past a failed one the inboxes stay allocated."""
+        try:
+            if self._ring is not None:
+                self._ring.release_peers()
+        except Exception as e:  # noqa: BLE001 — the teardown goes on
+            self._log_stderr(f"closing the ring's peer handles failed "
+                             f"({type(e).__name__}: {e})")
+        passed = barrier()
+        if passed:
+            try:
+                peer_ring.free_inboxes(self._ring_orphans)
+            except Exception as e:  # noqa: BLE001 — the teardown goes on
+                self._log_stderr(f"freeing a failed table's inboxes "
+                                 f"failed ({type(e).__name__}: {e})")
+        return passed
+
+    def _control_barrier(self) -> bool:
         """Barrier over the host control plane (all ranks must call).
-        A failure is logged, never swallowed silently."""
+        A failure is logged, never swallowed silently; returns whether
+        it passed."""
         try:
             self._inner.allreduce(np.zeros(1, np.uint8), ReduceOp.SUM)
+            return True
         except Exception as e:  # noqa: BLE001
             self._log_stderr(
                 f"control barrier failed ({type(e).__name__}: {e}); "
                 "teardown ordering is no longer guaranteed")
+            return False
+
+    def _group_barrier(self) -> bool:
+        """Barrier over the adopted group (adopt mode's only plane): a
+        one-element allreduce.  A failure is logged; returns whether it
+        passed."""
+        try:
+            check(self._group is not None, "no group")
+            self._group.allreduce(
+                [torch.zeros(1, device=self._device)]).wait()
+            return True
+        except Exception as e:  # noqa: BLE001
+            self._log_stderr(
+                f"group barrier failed ({type(e).__name__}: {e}); the "
+                "ring's inboxes stay allocated until the process exits")
+            return False
+
+    def _close_ring_adopted(self) -> None:
+        """The ring's ordered teardown over an adopted group
+        (:meth:`_release_ring` with the group's barrier in adopt mode,
+        the host plane's in mixed mode), then the table closed and its
+        files unlinked; its inboxes are freed at once only past a
+        barrier that passed."""
+        passed = self._release_ring(
+            self._group_barrier if self._no_host_transport
+            else self._control_barrier)
+        self._drop_group(quiet=passed)
 
     @staticmethod
     def _log_stderr(msg: str) -> None:
@@ -777,6 +879,9 @@ class XLAEngine(Engine):
             # engine's own shutdown consensus does; they wait for a
             # dead peer's relaunch.
             self._shutdown_distributed_ordered()
+        elif (self._world > 1 and self._inner is not None
+              and self._device_impl == "pallas_ring"):
+            self._close_ring_adopted()
         if self._inner is not None:
             self._inner.shutdown()
         self._drop_group()
@@ -908,10 +1013,12 @@ class XLAEngine(Engine):
         plane."""
         if isinstance(buf, np.ndarray):
             if self._no_host_transport and self._world > 1:
-                # adopt mode: reduce on the group, copy back in place
+                # adopt mode: reduce on the group (or the ring, where
+                # the gate lets the payload through), copy back in place
                 if prepare_fun is not None:
                     prepare_fun()
-                out = self._tensor_op("allreduce", self._on_group(buf), op)
+                out = self._tensor_op("allreduce", self._on_group(buf, op),
+                                      op)
                 buf[...] = out.cpu().numpy()
                 return buf
             return self._inner.allreduce(buf, op, prepare_fun)
@@ -935,9 +1042,15 @@ class XLAEngine(Engine):
             return buf.unsqueeze(0).clone()
         return self._tensor_op("allgather", buf, ReduceOp.SUM)
 
-    def _on_group(self, buf: np.ndarray) -> torch.Tensor:
-        """A numpy buffer as a tensor on the adopted group's device."""
-        return torch.from_numpy(np.ascontiguousarray(buf)).to(self._device)
+    def _on_group(self, buf: np.ndarray,
+                  op: Optional[ReduceOp] = None) -> torch.Tensor:
+        """A numpy buffer as a tensor on the adopted group's device, or,
+        for an allreduce (``op`` given) that the ring's gate lets
+        through, on the ring's card."""
+        t = torch.from_numpy(np.ascontiguousarray(buf))
+        if op is not None and self._use_pallas_ring(buf.shape, t.dtype, op):
+            return t.to(self._ring.device)
+        return t.to(self._device)
 
     def _tensor_op(self, kind: str, buf: torch.Tensor,
                    op: ReduceOp) -> torch.Tensor:

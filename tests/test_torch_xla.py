@@ -364,21 +364,15 @@ def test_programming_error_raises_and_peer_failure_degrades():
 
 
 # ----------------------------------------------------------- pallas_ring
-def test_pallas_ring_is_refused(monkeypatch):
-    """What stays refused: an unknown impl, a size gate that is not a
-    byte count, and pallas_ring over an externally initialised group
-    (adopt and mixed modes, A7b).  At world 1 pallas_ring starts."""
+def test_pallas_ring_is_refused():
+    """What stays refused: an unknown impl and a size gate that is not a
+    byte count.  At world 1 pallas_ring starts (adopt and mixed modes
+    start it too: ``tests/test_torch_adopt_ring.py``)."""
     XLAEngine().init({"rabit_device_impl": "pallas_ring"})
     with pytest.raises(Exception, match="rabit_device_impl"):
         XLAEngine().init({"rabit_device_impl": "warp"})
     with pytest.raises(Exception, match="rabit_pallas_min_bytes"):
         XLAEngine().init({"rabit_pallas_min_bytes": "lots"})
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 3)
-    for params in ({}, {"rabit_tracker_uri": "127.0.0.1",
-                        "rabit_tracker_port": 9}):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            XLAEngine().init(dict(params, rabit_device_impl="pallas_ring"))
 
 
 def test_pallas_ring_routing():
@@ -586,7 +580,7 @@ def test_ring_table_formation_frees_earlier_tables_inboxes(monkeypatch):
 
     def body(eng, trial, rec):
         eng._ring_orphans += [(0, 4096 * (eng.rank + 1))]
-        eng._form_ring(eng.device_epoch)    # the CPU-mode table, a seam
+        eng._form_ring(eng.device_epoch, eng._device)    # a CPU-mode table
         rec["orphans"] = list(eng._ring_orphans)
         rec["freed"] = list(freed)
         rec["sum"] = float(eng.allreduce(torch.ones(2048), ReduceOp.SUM)[0])
