@@ -307,6 +307,25 @@ Phases, each raising on failure (the script then exits non-zero):
     memset intervals), the ring op's split (the D2D copy, the barrier's
     wait, ``ring_allreduce_peer`` on the card) and B4 alone on the
     table's inboxes (CUDA events).  No ``rabit_ring.*`` file is left.
+26. (after 25) the shared-memory transport at world 3 (the port's
+    ``transport/shm.py``: mmap'd rings in ``default_shm_dir()``, whose
+    free bytes it prints, with the TCP connection kept as doorbell).
+    (a) The port's ``Tracker(3)`` twice and three rank processes (this
+    script with ``--phase26-world``): ``kmeans.run`` on phase 17's
+    dense16 thirds, 3 iterations, B1 on each rank, over ``pysocket``
+    with ``rabit_transport=shm``: every link shm, none fallen back,
+    counts exact against phase 17's oracle and the final centroids bit
+    for bit phase 17's TCP run; then 50 back-to-back allreduces of the
+    (64, 257) float32 stats (65,792 B) and of the largest GBDT level's
+    4,210,688 B, on shm and, under the second tracker, on TCP in the
+    same processes (median and p90 by rank).  (b) The same job under
+    the port's ``launch_local.launch(3, ..., max_restarts=1)`` over
+    ``pyrobust`` with shm, crc32c framing and the failover off (this
+    script with ``--phase26-rank``): rank 1 SIGKILLs itself entering
+    iteration 2's stats allreduce, the relaunch re-wires its links as
+    shm and the job resumes: every life's links shm, centroids bit for
+    bit (a)'s, B1 launches by life [3], [1, 2], [3], each survivor's
+    LinkError -> resumed op printed.  No ring file is left.
 
 It ends with three lines: the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line of kernel numbers
@@ -2965,8 +2984,9 @@ def _recovery_probe(eng, rec, dump, stop=None):
     rendezvous and the serving rounds to the op that resumed) with the
     checkpoint bytes served, and ``dump()`` the record before a
     kill-point ends the process.  ``stop`` (rank, version, seqno,
-    marker): at that kill-point check, unless the marker file exists,
-    make it, dump the record and send this process SIGSTOP."""
+    marker, signal): at that kill-point check, unless the marker file
+    exists, make it, dump the record and send this process the signal
+    (SIGSTOP in phase 20, SIGKILL in phase 26)."""
     real = {name: getattr(eng, name) for name in (
         "_allreduce_blocking", "_broadcast_blocking", "_rendezvous_recover",
         "_serve_checkpoint_load", "_serve_result", "_bcast_impl", "_verify",
@@ -3030,10 +3050,11 @@ def _recovery_probe(eng, rec, dump, stop=None):
         if stop is not None and (eng._rank, eng._version, seqno) == \
                 tuple(stop[:3]) and not os.path.exists(stop[3]):
             open(stop[3], "w").close()
-            rec["stopped"] = [eng._version, seqno]
-            rec["marks"]["stopped"] = since_start()
+            key = "stopped" if stop[4] == signal.SIGSTOP else "sigkill_at"
+            rec[key] = [eng._version, seqno]
+            rec["marks"][key] = since_start()
             dump()
-            os.kill(os.getpid(), signal.SIGSTOP)   # hung until killed
+            os.kill(os.getpid(), stop[4])   # hung until killed, or gone
         if (eng._version, seqno, eng._num_trial) in eng._kill_points:
             rec["killed"] = [eng._version, seqno]
             rec["marks"]["killed"] = since_start()
@@ -3135,10 +3156,10 @@ def _durable_probe(eng, rec, dump, which, out_dir):
 
 
 def robust_rank(phase, which, out_dir):
-    """One rank process of phase 19, 20 or 21 (``chip_smoke.py
-    --phase19-rank|--phase20-rank|--phase21-rank WHICH DIR``), started,
-    and restarted after a kill-point or a kill, by the port's
-    ``launch_local.launch``.
+    """One rank process of phase 19, 20, 21 or 26 (``chip_smoke.py
+    --phase19-rank|--phase20-rank|--phase21-rank|--phase26-rank WHICH
+    DIR``), started, and restarted after a kill-point or a kill, by the
+    port's ``launch_local.launch``.
     It joins through the tracker URI the launcher puts in its
     environment (no ``rabit_engine``: the autodetect picks ``pyrobust``)
     and runs phase 17's job on its third of phase 17's rows:
@@ -3146,10 +3167,12 @@ def robust_rank(phase, which, out_dir):
     the float32 kernel (B3).  A life writes its record (collectives,
     recovery episodes, launches, times since the process started and
     that origin on the monotonic clock, results) to DIR, also just
-    before its kill-point ends it, its phase-20 stop hangs it or its
-    phase-21 kill ends it (``_durable_probe``).  Phases 19 and 21 bound
-    the links at W3_TIMEOUT; phase 20 leaves the timeout to the engine's
-    default or ``RABIT_TIMEOUT_SEC``."""
+    before its kill-point ends it, its phase-20 stop hangs it, its
+    phase-21 kill (``_durable_probe``) or its phase-26 SIGKILL ends it,
+    with its links' kinds and transport counters.  Phases 19, 21 and 26
+    bound the links at W3_TIMEOUT; phase 20 leaves the timeout to the
+    engine's default or ``RABIT_TIMEOUT_SEC``.  Phase 26's transport
+    knobs come from the launcher's environment."""
     marks = {}
     import torch
 
@@ -3170,7 +3193,7 @@ def robust_rank(phase, which, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rabit_tpu_torch.init(**({"rabit_timeout_sec": W3_TIMEOUT}
-                            if phase in ("19", "21") else {}))
+                            if phase in ("19", "21", "26") else {}))
     marks["init"] = since_start()
     eng = engine_mod.get_engine()
     rank = eng.rank
@@ -3184,12 +3207,18 @@ def robust_rank(phase, which, out_dir):
 
     def dump():
         rec["launches"] = dict(kk.LAUNCHES, **hk.LAUNCHES)
+        rec["links"] = {str(p): link.kind for p, link in eng._links.items()}
+        rec["transport"] = eng.transport_counters()
         with open(path, "w") as f:
             json.dump(rec, f)
 
     stop = None
     if phase == "20":
-        stop = P20_RUNS[which] + (os.path.join(out_dir, "stopped." + which),)
+        stop = P20_RUNS[which] + (os.path.join(out_dir, "stopped." + which),
+                                  signal.SIGSTOP)
+    if phase == "26":
+        stop = P26_KILL + (os.path.join(out_dir, "killed." + which),
+                           signal.SIGKILL)
     _recovery_probe(eng, rec, dump, stop)
     if phase == "21":
         _durable_probe(eng, rec, dump, which, out_dir)
@@ -3301,11 +3330,12 @@ def _rank_lives(out_dir, which):
 
 
 def _recovery_times(which, lives):
-    """Phase 19's or 20's recovery times, one line a rank and life."""
+    """Phase 19's, 20's or 26's recovery times, one line a rank and
+    life."""
     for rank, recs in sorted(lives.items()):
         for r in recs:
             m = r["marks"]
-            head = (f"      {which} rank {rank} life {r['trial'] + 1} "
+            head = (f"      {which} rank {rank} life {r['relaunch'] + 1} "
                     f"(RABIT_NUM_TRIAL {r['trial']}, relaunched "
                     f"{r['relaunched']})")
             if r["relaunched"]:
@@ -3342,6 +3372,9 @@ def _recovery_times(which, lives):
             if "stopped" in r:
                 log(f"{head}: stopped (SIGSTOP) at v{r['stopped'][0]} seq "
                     f"{r['stopped'][1]} at {m['stopped']:.3f} s")
+            if "sigkill_at" in r:
+                log(f"{head}: SIGKILLed itself at v{r['sigkill_at'][0]} seq "
+                    f"{r['sigkill_at'][1]} at {m['sigkill_at']:.3f} s")
 
 
 def phase19(torch, w3):
@@ -6394,6 +6427,297 @@ def phase25(torch, w3, p24, km, kk):
     return out
 
 
+# ----------------------------------------- the shm transport at world 3
+P26_LEGS = ("shm", "tcp")          # (a)'s two trackers, in this order
+P26_REPS, P26_WARM = 50, 3         # back-to-back allreduces a size and leg
+P26_SIZES = {"stats": P23_STATS_BYTES, "level": P23_LEVEL_BYTES}
+# (b): rank 1 SIGKILLs itself entering iteration 2's stats allreduce,
+# (rank, version, seqno) as phase 19's first kill-point; the launcher's
+# supervisor relaunches it once
+P26_KILL = P19_RUNS["kmeans"][0][:3]
+P26_B1_LIVES = P20_B1_LIVES        # the same lives as phase 20's stop
+# (b) keeps every link on shm through the death: with the failover on
+# (the default), a survivor whose shm link reports the peer's death
+# denies that peer shm for the rest of its life, as the reference does
+# (tests/test_torch_shm.py pins both settings)
+P26_ENV = {"RABIT_TRANSPORT": "shm", "RABIT_WIRE_INTEGRITY": "crc32c",
+           "RABIT_TRANSPORT_FAILOVER": "0"}
+
+
+def _shm_ring_files():
+    """The shm transport's ring files in its default directory."""
+    from rabit_tpu_torch.transport.shm import default_shm_dir
+
+    d = default_shm_dir()
+    return sorted(n for n in os.listdir(d) if n.startswith("rabit-shm-"))
+
+
+def phase26_rank(task, ports):
+    """One rank process of phase 26 (a) (``chip_smoke.py --phase26-world
+    TASK PORT PORT``): under the first tracker, the port's PySocketEngine
+    with ``rabit_transport=shm``: ``kmeans.run`` on its third of phase
+    17's dense16 rows (B1), 3 iterations, then P26_REPS back-to-back
+    allreduces of each of P26_SIZES; under the second, the same
+    allreduces with ``rabit_transport=tcp``.  Prints one JSON line: each
+    leg's link kinds, transport counters and op times, and the k-means
+    results, launches and wire ops."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase-26 ranks run on the card")
+    sys.path.insert(0, ROOT)
+    import rabit_tpu_torch
+    from rabit_tpu_torch import engine as engine_mod
+    from rabit_tpu_torch.learn import kmeans as km
+    from rabit_tpu_torch.ops import ReduceOp
+    from rabit_tpu_torch.ops import kmeans_kernel as kk
+    from rabit_tpu_torch.parallel.mesh import local_data_slice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for leg, port in zip(P26_LEGS, ports):
+        rabit_tpu_torch.init(rabit_engine="pysocket",
+                             rabit_tracker_uri="127.0.0.1",
+                             rabit_tracker_port=port, rabit_task_id=task,
+                             rabit_world_size=W3_RANKS,
+                             rabit_timeout_sec=W3_TIMEOUT,
+                             rabit_transport=leg)
+        eng = engine_mod.get_engine()
+        rank = eng.rank
+        real_ar = eng.allreduce
+        rec = out[leg] = dict(rank=rank, links={
+            str(p): link.kind for p, link in eng._links.items()})
+        if leg == "shm":
+            data = sparse_clusters(MAIN_ROWS, 256, 32, K, seed=7,
+                                   picks=world3_picks(MAIN_ROWS, K,
+                                                      W3_RANKS))
+            shard = _shard_rows(data, local_data_slice(rank, W3_RANKS,
+                                                       MAIN_ROWS))
+            del data
+            clock, tiers, counts = _Clock(), [], []
+            clock.wire(eng)
+            timed_ar = eng.allreduce
+            real_prepare = km.prepare_shard
+
+            def dense16(*a, **k):
+                staged = real_prepare(*a, budget=0, **k)   # as phase 17
+                tiers.append(staged[0])
+                return staged
+
+            def stats_allreduce(buf, op, prepare_fun=None):
+                res = timed_ar(buf, op, prepare_fun)
+                if res.ndim == 2:
+                    counts.append(res[:, -1].tolist())
+                return res
+            km.prepare_shard = clock.timed("staging", dense16)
+            eng.allreduce = stats_allreduce
+            for key in kk.LAUNCHES:
+                kk.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            model = km.run(shard, K, W3_KM_ITERS, compute_dtype="bfloat16")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            km.prepare_shard = real_prepare
+            rec.update(centroids=model.centroids.tolist(), counts=counts,
+                       launches=dict(kk.LAUNCHES), tiers=tiers,
+                       split=clock.split(wall), ops=clock.ops)
+            del shard
+        times = rec["times"] = {}
+        for name, nbytes in P26_SIZES.items():
+            buf = np.empty(nbytes // 4, np.float32)
+            times[name] = []
+            for i in range(P26_WARM + P26_REPS):
+                buf[:] = rank + 1
+                t0 = time.perf_counter()
+                real_ar(buf, ReduceOp.SUM)
+                dt = time.perf_counter() - t0
+                if not (buf == W3_RANKS * (W3_RANKS + 1) // 2).all():
+                    raise AssertionError(f"phase 26 {leg} {name}: a sum "
+                                         f"came out wrong")
+                if i >= P26_WARM:
+                    times[name].append(dt)
+        rec["counters"] = eng.transport_counters()
+        rabit_tpu_torch.finalize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _p26_quantiles(times):
+    """(median, p90) ms of a list of seconds."""
+    ms = sorted(t * 1e3 for t in times)
+    return statistics.median(ms), ms[min(len(ms) - 1,
+                                         int(round(0.9 * (len(ms) - 1))))]
+
+
+def phase26(torch, w3):
+    """Phase 26: the shared-memory transport at world 3.
+
+    (a) Three rank processes under the port's ``Tracker(3)`` twice
+    (``phase26_rank``): ``kmeans.run`` over ``rabit_transport=shm``, every
+    link shm, the final centroids bit for bit phase 17's TCP run (the same
+    schedule and reduction order), counts exact against phase 17's
+    oracle, B1 on every rank; P26_REPS back-to-back allreduces of the
+    (64, 257) float32 stats and of the largest GBDT level's bytes on shm,
+    then on TCP in the same processes.
+
+    (b) The same job under the port's ``launch_local.launch(3, ...)``
+    over ``pyrobust`` with P26_ENV (shm, crc32c framing): rank 1
+    SIGKILLs itself entering iteration 2's stats allreduce and the
+    supervisor relaunches it (``max_restarts=1``); every life's links are
+    shm (the survivors' re-wired ones too), the final centroids bit for
+    bit (a)'s, counts exact every iteration, B1 launches by life
+    P26_B1_LIVES.  No ring file is left in the shm directory.
+
+    Returns B1's launches by rank (a) and by rank and life (b), and the
+    numbers PERF.md quotes."""
+    from rabit_tpu_torch.transport.shm import default_shm_dir
+
+    t0 = time.perf_counter()
+    shm_dir = default_shm_dir()
+    free = shutil.disk_usage(shm_dir).free
+    log(f"[26] the shm transport at world {W3_RANKS}: rings in {shm_dir} "
+        f"({free} B free; {2 * 2 * (1 << 20)} B of rings a link, unlinked "
+        f"once both ends map them); (a) pysocket, k-means dense16 "
+        f"{MAIN_ROWS} x 256 k={K}, {W3_KM_ITERS} iterations, then "
+        f"{P26_REPS} back-to-back allreduces of {sorted(P26_SIZES.values())} "
+        f"B on shm and on tcp; (b) pyrobust under launch_local with "
+        f"{P26_ENV}, rank 1 SIGKILLed at (version, seq) {P26_KILL[1:]}")
+    before = _shm_ring_files()
+    results = _run_rank_processes("--phase26-world", len(P26_LEGS), "26")
+    by_rank = {r["shm"]["rank"]: r for r in results}
+    if sorted(by_rank) != list(range(W3_RANKS)):
+        raise AssertionError(f"phase 26 (a): ranks {sorted(by_rank)}")
+    want_cent = np.asarray(w3["centroids"], np.float32)
+    oracle = np.asarray(w3["oracle_counts"])
+    cent_a = None
+    b1_a = []
+    for rank in range(W3_RANKS):
+        for leg in P26_LEGS:
+            rec = by_rank[rank][leg]
+            kinds = set(rec["links"].values())
+            if kinds != {leg} or rec["counters"] != {
+                    f"transport.links.{leg}": W3_RANKS - 1}:
+                raise AssertionError(f"phase 26 (a) rank {rank} {leg}: links "
+                                     f"{rec['links']}, counters "
+                                     f"{rec['counters']}")
+        km_rec = by_rank[rank]["shm"]
+        cent = np.asarray(km_rec["centroids"], np.float32)
+        if not np.array_equal(cent, want_cent):
+            raise AssertionError(
+                f"phase 26 (a) rank {rank}: centroids off phase 17's by "
+                f"{float(np.abs(cent - want_cent).max())}")
+        if km_rec["counts"] != oracle.tolist() or \
+                km_rec["tiers"] != ["dense16"]:
+            raise AssertionError(f"phase 26 (a) rank {rank}: counts or "
+                                 f"tiers {km_rec['tiers']} off")
+        b1_a.append(km_rec["launches"]["kmeans_stats_dense"])
+        if b1_a[-1] < W3_KM_ITERS or km_rec["launches"]["kmeans_stats_ell"]:
+            raise AssertionError(f"phase 26 (a) rank {rank}: launches "
+                                 f"{km_rec['launches']}")
+        cent_a = cent
+    stats_bytes = P23_STATS_BYTES
+    run_ms = [statistics.median(op[1] * 1e3 for op in
+                                by_rank[r]["shm"]["ops"]
+                                if op[0] == stats_bytes)
+              for r in range(W3_RANKS)]
+    scheds = {op[2] for r in range(W3_RANKS)
+              for op in by_rank[r]["shm"]["ops"] if op[0] == stats_bytes}
+    log(f"    (a) every link shm ({W3_RANKS - 1} a rank, none fell back); "
+        f"centroids bit for bit phase 17's on every rank, counts of all "
+        f"{W3_KM_ITERS} iterations the oracle's; B1 launches by rank "
+        f"{b1_a}; the run's stats allreduce (rode {sorted(scheds)}) "
+        f"median by rank {[f'{t:.3f}' for t in run_ms]} ms on shm against "
+        f"phase 17's {[f'{statistics.median(t):.3f}' for t in w3['ring_stats_ms']]} "
+        f"ms on tcp")
+    steady = {}
+    for name, nbytes in P26_SIZES.items():
+        for leg in P26_LEGS:
+            q = [_p26_quantiles(by_rank[r][leg]["times"][name])
+                 for r in range(W3_RANKS)]
+            steady[f"{name}_{leg}"] = dict(
+                bytes=nbytes, median_ms=[m for m, _ in q],
+                p90_ms=[p for _, p in q])
+        shm_m, tcp_m = (statistics.median(steady[f"{name}_{leg}"]
+                                          ["median_ms"])
+                        for leg in P26_LEGS)
+        log(f"    (a) {P26_REPS} back-to-back allreduces of {nbytes} B "
+            f"({name}): medians by rank shm "
+            f"{[f'{t:.3f}' for t in steady[f'{name}_shm']['median_ms']]} "
+            f"ms (p90 {[f'{t:.3f}' for t in steady[f'{name}_shm']['p90_ms']]}"
+            f"), tcp {[f'{t:.3f}' for t in steady[f'{name}_tcp']['median_ms']]}"
+            f" ms (p90 {[f'{t:.3f}' for t in steady[f'{name}_tcp']['p90_ms']]}"
+            f"); shm/tcp {shm_m / tcp_m:.3f}")
+    t_a = time.perf_counter() - t0
+
+    # (b) through a death under the launcher
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        code, secs = _launch_ranks("26", "kmeans", tmp, max_restarts=1,
+                                   extra_env=P26_ENV)
+        lives = _rank_lives(tmp, "kmeans")
+    if code != 0:
+        raise AssertionError(f"phase 26 (b): the launcher returned {code}")
+    got = {r: len(lives.get(r, [])) for r in range(W3_RANKS)}
+    if got != {r: len(P26_B1_LIVES[r]) for r in range(W3_RANKS)}:
+        raise AssertionError(f"phase 26 (b): lives by rank {got}")
+    b1_b, resumed = {}, []
+    for rank, recs in sorted(lives.items()):
+        for i, r in enumerate(recs):
+            last = i == len(recs) - 1
+            killed = rank == P26_KILL[0] and i == 0
+            if (r["engine"] != "PyRobustEngine" or r["done"] != last
+                    or r["relaunched"] != (i > 0)
+                    or r.get("sigkill_at") != (list(P26_KILL[1:])
+                                               if killed else None)):
+                raise AssertionError(
+                    f"phase 26 (b) rank {rank} life {i + 1}: engine "
+                    f"{r['engine']}, done {r['done']}, relaunched "
+                    f"{r['relaunched']}, SIGKILL at {r.get('sigkill_at')}")
+            tc = r["transport"]
+            # each life's links, the survivors' re-wired ones included,
+            # are shm, and a survivor wired its links again
+            want_shm = (W3_RANKS - 1) * (1 if killed or i else 2)
+            if set(r["links"].values()) != {"shm"} or set(tc) != {
+                    "transport.links.shm"} or \
+                    tc["transport.links.shm"] < want_shm:
+                raise AssertionError(f"phase 26 (b) rank {rank} life "
+                                     f"{i + 1}: links {r['links']}, "
+                                     f"counters {tc}")
+            for op in (o for o in r["ops"] if "counts" in o):
+                if op["counts"] != oracle[op["version"]].tolist():
+                    raise AssertionError(f"phase 26 (b) rank {rank} life "
+                                         f"{i + 1}: counts at version "
+                                         f"{op['version']} off")
+            resumed += [e["total"] for e in r["episodes"]]
+        cent = np.asarray(recs[-1]["centroids"], np.float32)
+        if not np.array_equal(cent, cent_a):
+            raise AssertionError(
+                f"phase 26 (b) rank {rank}: centroids off (a)'s by "
+                f"{float(np.abs(cent - cent_a).max())}")
+        b1_b[rank] = [r["launches"]["kmeans_stats_dense"] for r in recs]
+    if b1_b != P26_B1_LIVES:
+        raise AssertionError(f"phase 26 (b): B1 launches by rank and life "
+                             f"{b1_b}, want {P26_B1_LIVES}")
+    if len(resumed) < W3_RANKS - 1:
+        raise AssertionError(f"phase 26 (b): {len(resumed)} recovery "
+                             f"episodes on the survivors")
+    log(f"    (b) launcher returned 0 in {secs:.1f} s; every life's links "
+        f"shm (the survivors' re-wired ones too); centroids bit for bit "
+        f"(a)'s; B1 launches by rank and life "
+        f"{[b1_b[r] for r in range(W3_RANKS)]}; LinkError -> resumed op "
+        f"{[f'{t:.3f}' for t in resumed]} s")
+    _recovery_times("kmeans", lives)
+    left = sorted(set(_shm_ring_files()) - set(before))
+    if left:
+        raise AssertionError(f"phase 26: ring files left in {shm_dir}: "
+                             f"{left}")
+    log(f"    no ring file left in {shm_dir}; phase 26 (a) {t_a:.1f} s, "
+        f"(b) {time.perf_counter() - t1:.1f} s")
+    return dict(kmeans_stats_dense=dict(
+        a=b1_a, b=[b1_b[r] for r in range(W3_RANKS)]), steady=steady,
+        resumed_s=resumed, shm_dir=shm_dir, shm_free_bytes=free)
+
+
 def main() -> int:
     import torch
 
@@ -6928,6 +7252,16 @@ def main() -> int:
                 kernel_alone_ms=p25["ring_split"]["kernel_alone_ms"])
             line["phase25_device_busy_share"] = p25["busy"]
     log(f"    phase 25 took {time.perf_counter() - t0:.1f} s")
+
+    # 26. the shm transport at world 3, and through a death
+    t0 = time.perf_counter()
+    p26 = phase26(torch, w3)
+    for line in lines:
+        if line["name"] == "kmeans_stats_dense":
+            line["phase26_launches_by_rank"] = p26["kmeans_stats_dense"]
+            line["phase26_shm"] = dict(steady=p26["steady"],
+                                       resumed_s=p26["resumed_s"])
+    log(f"    phase 26 took {time.perf_counter() - t0:.1f} s")
     log(f"    run directory: {cache_gain()}")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
 
@@ -6945,7 +7279,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase18-rank"]:
         sys.exit(phase18_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     if sys.argv[1:2] in (["--phase19-rank"], ["--phase20-rank"],
-                         ["--phase21-rank"]):
+                         ["--phase21-rank"], ["--phase26-rank"]):
         sys.exit(robust_rank(sys.argv[1][7:9], sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase23-rank"]:
         sys.exit(device_plane_rank(sys.argv[2], sys.argv[3]))
@@ -6953,6 +7287,8 @@ if __name__ == "__main__":
         sys.exit(linear_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase24-kmeans"]:
         sys.exit(kmeans_mixed_rank(sys.argv[2], sys.argv[3:4] == ["ring"]))
+    if sys.argv[1:2] == ["--phase26-world"]:
+        sys.exit(phase26_rank(sys.argv[2], [int(p) for p in sys.argv[3:]]))
     if sys.argv[1:2] == ["--phase25-rank"]:
         sys.exit(speed_rank(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--phase22-rank"]:

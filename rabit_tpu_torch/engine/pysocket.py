@@ -31,7 +31,7 @@ Payloads are numpy arrays, as the reference engine moves numpy; a
 device-plane engine, ``rabit_engine="xla"``).  Left out until their ROADMAP items, each refused with
 :class:`NotImplementedError` where a knob would ask for it, since every
 one of them decides wire behaviour that must be uniform across ranks:
-shared-memory links, the tuning cache and the ``auto``, ``swing`` and
+the tuning cache and the ``auto``, ``swing`` and
 ``synth`` schedules, wire codecs, chaos injection, telemetry and
 tracing (the reference's ``async.*`` instruments among them, and on
 the heartbeat channel its obs frames, beat echoes and ``hb.rtt``), the
@@ -233,11 +233,14 @@ class PySocketEngine(Engine):
         self._reduce_buffer = 256 << 20
         self.scratch_peak_bytes = 0
         self._sock_buf = 0          # rabit_sock_buf (0 = kernel default)
-        # Link construction + feature negotiation: the transport config
-        # resolves in init(); the factory is built once registration
-        # has returned this rank (the port's factory takes it then).
-        self._tcfg = tr.TransportConfig()
-        self._lf: Optional[tr.LinkFactory] = None
+        # Pluggable transports (rabit_tpu_torch/transport/): the factory
+        # owns link construction + feature negotiation + shm failover
+        # denial; built for real in init() once the knobs resolve, and
+        # kept for the engine's life (its denied set must outlive every
+        # rendezvous).  Its counters land in _tev.
+        self._tev = tr.CountingEvents()
+        self._lf = tr.LinkFactory(tr.TransportConfig(),
+                                  timeout=self._timeout, events=self._tev)
         self._arena = _ScratchArena()
         # Hop pipelining (rabit_pipeline_depth / rabit_pipeline_chunk):
         # the schedules' chunked exchange+merge loops keep up to
@@ -381,23 +384,37 @@ class PySocketEngine(Engine):
         self._shard_retries = int(raw) if raw not in (None, "") else 4
         check(self._shard_retries >= 0,
               "rabit_shard_retries must be >= 0")
-        # Transports + integrity framing: all defaults keep the wire
-        # byte-identical; every feature is negotiated per link at
-        # rendezvous.  shm/auto raise in TransportConfig (ROADMAP A8).
+        # Pluggable transports + integrity framing: all defaults keep
+        # the wire byte-identical; every feature is negotiated per link
+        # at rendezvous.
         raw = _param_or_env("rabit_transport")
         transport = (str(raw).strip().lower()
                      if raw not in (None, "") else "tcp")
         raw = _param_or_env("rabit_wire_integrity")
         integrity = (str(raw).strip().lower()
                      if raw not in (None, "") else "off")
+        ring_bytes = _size_or_zero(
+            _param_or_env("rabit_shm_ring_bytes"), 1 << 20) or (1 << 20)
+        raw = _param_or_env("rabit_transport_failover")
+        failover = str(raw).strip().lower() not in ("0", "false", "off") \
+            if raw not in (None, "") else True
+        raw = _param_or_env("rabit_shm_retries")
+        shm_retries = int(raw) if raw not in (None, "") else 3
+        raw = _param_or_env("rabit_shm_dir")
+        shm_dir = str(raw) if raw not in (None, "") else None
         # Proactive liveness: send one keepalive per rabit_heartbeat_sec
         # on a persistent tracker connection (0 disables; the tracker's
         # miss budget is RABIT_HEARTBEAT_MISS periods).
         raw = _param_or_env("rabit_heartbeat_sec")
         self._hb_sec = float(raw) if raw not in (None, "") else 0.0
         check(self._hb_sec >= 0, "rabit_heartbeat_sec must be >= 0")
-        self._tcfg = tr.TransportConfig(transport=transport,
-                                        integrity=integrity)
+        self._lf = tr.LinkFactory(
+            tr.TransportConfig(transport=transport, integrity=integrity,
+                               shm_ring_bytes=ring_bytes,
+                               failover=failover, shm_retries=shm_retries,
+                               shm_dir=shm_dir),
+            timeout=self._timeout, sock_buf=self._sock_buf,
+            events=self._tev)
         self._rendezvous(P.CMD_START)
         self._start_heartbeat()
 
@@ -559,9 +576,11 @@ class PySocketEngine(Engine):
             # per rank; empty from a pre-sched tracker).
             self._groups = list(topo.groups)
             os.environ["RABIT_TPU_LOG_TAG"] = f"rank{self._rank}"
-            self._lf = tr.LinkFactory(self._tcfg, self._rank,
-                                      timeout=self._timeout,
-                                      sock_buf=self._sock_buf)
+            # The link factory negotiates per-peer transports from the
+            # same handout every rank received (host groups name the
+            # same-host shm candidates), so both ends of every link
+            # agree.
+            self._lf.set_topology(self._rank, self._groups)
             self._reconnect_links(topo)
         except BaseException:
             self._close_links()
@@ -691,9 +710,13 @@ class PySocketEngine(Engine):
 
         Each established socket is handed to the transport factory,
         which runs the link handshake (classic bytes under default
-        config), negotiates integrity framing where configured, and
-        applies the shared socket setup (rabit_sock_buf, TCP_NODELAY,
-        timeout) on every link.
+        config), negotiates shm/integrity features where configured,
+        and applies the shared socket setup (rabit_sock_buf,
+        TCP_NODELAY, timeout) on every TCP link creation path — first
+        wiring, recovery re-dials and shm→tcp failover alike.  This is
+        the seam the live failover rides: a peer in the factory's
+        denied set (its shm link failed mid-job) renegotiates here as
+        plain TCP.
 
         The listener's port is an ephemeral one, so a stray client — a
         process still dialing a port it once knew, such as a worker
@@ -899,17 +922,63 @@ class PySocketEngine(Engine):
     # ------------------------------------------------------------------
     # link IO helpers (delegating to rabit_tpu_torch/transport)
     # ------------------------------------------------------------------
+    def transport_counters(self) -> dict[str, int]:
+        """This engine's transport counters, name -> total, over its
+        life: ``transport.links.tcp``/``.shm`` (links built),
+        ``transport.shm.fallback`` (an shm link the configuration asked
+        for that stayed TCP: an unwritable directory, a refused attach
+        or a degenerate ring), ``transport.failover`` and
+        ``transport.failover.shm_to_tcp`` (peers denied shm after a
+        LinkError on their shm link) and the ``integrity.*`` counts of
+        the shm links' frames.  The reference keeps these on its obs
+        metrics, which are not ported (ROADMAP A8)."""
+        return self._tev.snapshot()
+
+    def _note_link_error(self, exc: LinkError) -> None:
+        """Failure attribution for the LIVE FAILOVER path: a LinkError
+        raised inside a shm link (health probe, ring fault, integrity
+        escalation, a peer's death on its doorbell channel) marks that
+        peer transport-denied, so the recover rendezvous this same
+        exception is about to trigger re-dials the link as plain TCP —
+        mid-job, visible in the ``transport.failover.*`` counters, never
+        a hang.  TCP failures change nothing here (there is no transport
+        below TCP to fall to; recovery handles them as always).  (The
+        reference also notes every LinkError in its flight recorder,
+        part of the obs plane, ROADMAP A8.)"""
+        link = getattr(exc, "link", None)
+        if link is None or link.kind != "shm":
+            return
+        if not self._lf.deny(link.peer):
+            return
+        log("transport: shm link to rank %d failed (%s: %s); failing over "
+            "to tcp at the next rendezvous", link.peer,
+            type(exc).__name__, exc)
+        self._tev.counter("transport.failover")
+        self._tev.counter("transport.failover.shm_to_tcp")
+
     def _send(self, rank: int, data: bytes | memoryview) -> None:
-        self._links[rank].sendall(data)
+        try:
+            self._links[rank].sendall(data)
+        except LinkError as e:
+            self._note_link_error(e)
+            raise
 
     def _recv(self, rank: int, nbytes: int, into: memoryview | None = None):
-        return self._links[rank].recv_exact(nbytes, into)
+        try:
+            return self._links[rank].recv_exact(nbytes, into)
+        except LinkError as e:
+            self._note_link_error(e)
+            raise
 
     def _sendv(self, rank: int, *parts) -> None:
         """Scatter-gather send: coalesce several buffers (header +
         payload) into as few syscalls as the transport allows — the byte
         stream is identical to sequential ``sendall`` calls."""
-        self._links[rank].sendv(parts)
+        try:
+            self._links[rank].sendv(parts)
+        except LinkError as e:
+            self._note_link_error(e)
+            raise
 
     def _recv_all(self, ranks: list[int], nbytes: int,
                   bufs: list[memoryview]) -> None:
@@ -917,8 +986,12 @@ class PySocketEngine(Engine):
         draining every link concurrently.  Callers merge in
         deterministic rank order afterwards — reduction order is
         unchanged."""
-        tr.recv_all([self._links[r] for r in ranks], nbytes, bufs,
-                    self._timeout)
+        try:
+            tr.recv_all([self._links[r] for r in ranks], nbytes, bufs,
+                        self._timeout)
+        except LinkError as e:
+            self._note_link_error(e)
+            raise
 
     def _exchange(self, send_rank: int, send_data: memoryview,
                   recv_rank: int, recv_buf: memoryview) -> None:
@@ -932,8 +1005,12 @@ class PySocketEngine(Engine):
         ``send_parts`` (no intermediate concatenation copy) while
         filling ``recv_parts`` in order.  The fused segmented-ring hot
         path moves every member's block through here."""
-        tr.exchange(self._links[send_rank], send_parts,
-                    self._links[recv_rank], recv_parts, self._timeout)
+        try:
+            tr.exchange(self._links[send_rank], send_parts,
+                        self._links[recv_rank], recv_parts, self._timeout)
+        except LinkError as e:
+            self._note_link_error(e)
+            raise
 
     # ------------------------------------------------------------------
     # hop pipelining
@@ -999,17 +1076,23 @@ class PySocketEngine(Engine):
         """Run ``body(pipe)`` under the choreography every pipelined
         hop shares: open (pump_begin may raise on a dead link), flush
         + restore on success, ABORT on any exception (framed backlog
-        dropped)."""
+        dropped), and LinkError attribution through
+        :meth:`_note_link_error` so a failing shm link still earns its
+        tcp failover."""
         pipe = None
         try:
-            pipe = tr.HopPipeline(self._links[send_rank],
-                                  self._links[recv_rank],
-                                  self._timeout, what)
-            body(pipe)
-            pipe.close()
-        except BaseException:
-            if pipe is not None:
-                pipe.abort()
+            try:
+                pipe = tr.HopPipeline(self._links[send_rank],
+                                      self._links[recv_rank],
+                                      self._timeout, what)
+                body(pipe)
+                pipe.close()
+            except BaseException:
+                if pipe is not None:
+                    pipe.abort()
+                raise
+        except LinkError as e:
+            self._note_link_error(e)
             raise
 
     def _hop_pipelined(self, send_rank: int, sblk, recv_rank: int,

@@ -1,9 +1,8 @@
 """The Transport/Link interface — how engine bytes reach a peer.
 
 PyTorch-port counterpart of :mod:`rabit_tpu.transport.base` (its own
-copy: the port imports nothing of the JAX package).  The port has the
-TCP link only; ``rabit_transport=shm``/``auto`` raise until the shm
-rings are ported (ROADMAP A8).
+copy: the port imports nothing of the JAX package), with both of its
+links: TCP and the same-host shared-memory rings.
 
 Every worker-worker byte the pure-Python engines move flows through
 a :class:`Link`: the engine wires one per peer at rendezvous (via
@@ -15,10 +14,12 @@ send/recv, vectored writes, timeouts, health — while the engine keeps
 everything above the byte stream (op framing, reduction math, seqno/
 replay, recovery).
 
-The port's implementation is
-:class:`rabit_tpu_torch.transport.tcp.TcpLink` (the classic TCP path,
-byte-identical on the wire).  The reference also ships same-host
-shared-memory rings (``ShmLink``).  A link optionally speaks
+Two implementations ship: :class:`rabit_tpu_torch.transport.tcp.TcpLink`
+(the classic TCP path, byte-identical on the wire) and
+:class:`rabit_tpu_torch.transport.shm.ShmLink` (same-host shared-memory
+ring buffers, byte for byte the reference's layout, with the TCP
+connection retained as doorbell + liveness channel).  A link optionally
+speaks
 **integrity framing** (``rabit_wire_integrity``): every write is wrapped
 in a ``u32 length | payload | u32 crc`` frame so a flipped wire bit is
 *detected* — surfacing as a typed :class:`IntegrityError` (a
@@ -31,7 +32,10 @@ No engine imports here — engine → transport only, never back.
 """
 from __future__ import annotations
 
+import math
+import select
 import socket
+import threading
 from typing import Optional
 
 from rabit_tpu_torch.utils.checks import check
@@ -53,6 +57,12 @@ SENDMSG_MAX_PARTS = 64
 INTEGRITY_MODES = ("off", "crc32", "crc32c")
 TRANSPORT_MODES = ("tcp", "shm", "auto")
 
+#: smallest usable shm ring: enforced on the local config AND on the
+#: NEGOTIATED size (a skewed or garbled peer offer below this takes the
+#: clean tcp-fallback path — a degenerate ring whose every write
+#: returns 0 would stall to the link timeout instead).
+SHM_RING_MIN = 4096
+
 
 class LinkError(ConnectionError):
     """A worker-worker or tracker link failed (peer death or reset).
@@ -60,7 +70,7 @@ class LinkError(ConnectionError):
     Raised by every transport on IO failure; the robust engine's
     recovery path catches exactly this.  Instances raised inside a
     :class:`Link` carry the link as ``err.link`` so the engine can
-    attribute the failure."""
+    attribute the failure (the shm→tcp failover bookkeeping)."""
 
     link: Optional["Link"] = None
 
@@ -72,8 +82,10 @@ class IntegrityError(LinkError):
     did not match its payload after the transport's bounded re-read
     budget.  This IS a :class:`LinkError` on purpose: the pyrobust
     recovery path escalates it exactly like a peer death — the op
-    retries from pristine buffers.  Without a robust layer it reaches
-    the caller typed, never as silently wrong numbers."""
+    retries from pristine buffers — and the engine's failover hook
+    additionally tears a corrupted shm link down and re-dials it as
+    TCP.  Without a robust layer it reaches the caller typed, never as
+    silently wrong numbers."""
 
 
 class Events:
@@ -91,35 +103,128 @@ class Events:
 NULL_EVENTS = Events()
 
 
+class CountingEvents(Events):
+    """An :class:`Events` sink that keeps the counters (name -> total)
+    and drops the trace events: the engine's transport counters
+    (``transport.links.*``, ``transport.shm.fallback``,
+    ``transport.failover.*``, ``integrity.*``) while the obs plane is
+    not ported (ROADMAP A8).  Link threads and the engine's async pump
+    may count at once, hence the lock."""
+
+    def __init__(self) -> None:
+        self.counts: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self.counts)
+
+
 class TransportConfig:
     """Resolved transport knobs (doc/parameters.md "Transports").
 
-    ``transport``: ``tcp`` (default — byte-identical classic wire).
-    ``shm``/``auto`` (the reference's shared-memory rings to
-    same-host-group peers) raise :class:`NotImplementedError` here
-    until the rings are ported (ROADMAP A8): nothing falls back to TCP
-    silently.  ``integrity``: ``off`` | ``crc32`` | ``crc32c`` frame
-    trailers.
+    ``transport``: ``tcp`` (default — byte-identical classic wire),
+    ``shm``/``auto`` (offer shared-memory rings to same-host-group
+    peers, TCP cross-host; ``shm`` logs when it has to fall back).
+    ``integrity``: ``off`` | ``crc32`` | ``crc32c`` frame trailers.
+    ``shm_ring_bytes``: per-direction ring capacity.  ``failover``:
+    tear a failing shm link down and re-dial as TCP at the next
+    rendezvous.  ``shm_retries``: bounded re-reads of a CRC-failed shm
+    frame before escalating (catches a torn-but-completing write).
+    ``shm_dir``: where the ring files are made (None: ``/dev/shm``, or
+    the temp directory where that is not writable).  The reference's
+    ``link_mbps`` pacing is refused by the engine (ROADMAP A8).
     """
 
-    def __init__(self, transport: str = "tcp",
-                 integrity: str = "off") -> None:
+    def __init__(self, transport: str = "tcp", integrity: str = "off",
+                 shm_ring_bytes: int = 1 << 20, failover: bool = True,
+                 shm_retries: int = 3,
+                 shm_dir: Optional[str] = None) -> None:
         check(transport in TRANSPORT_MODES,
               "rabit_transport must be one of %s, got %r",
               "/".join(TRANSPORT_MODES), transport)
-        if transport != "tcp":
-            raise NotImplementedError(
-                f"rabit_transport={transport!r}: the shared-memory "
-                "transport is not ported yet (ROADMAP A8); use tcp")
         check(integrity in INTEGRITY_MODES,
               "rabit_wire_integrity must be one of %s, got %r",
               "/".join(INTEGRITY_MODES), integrity)
+        check(shm_ring_bytes >= SHM_RING_MIN,
+              "rabit_shm_ring_bytes must be >= %d, got %r",
+              SHM_RING_MIN, shm_ring_bytes)
+        check(shm_retries >= 0, "rabit_shm_retries must be >= 0")
         self.transport = transport
         self.integrity = integrity
+        self.shm_ring_bytes = int(shm_ring_bytes)
+        self.failover = bool(failover)
+        self.shm_retries = int(shm_retries)
+        self.shm_dir = shm_dir
 
     @property
     def wants_integrity(self) -> bool:
         return self.integrity != "off"
+
+    @property
+    def wants_shm(self) -> bool:
+        return self.transport in ("shm", "auto")
+
+    def mode_label(self, groups: list[int]) -> str:
+        """The transport label for tuning-cache keys: ``shm`` when shm
+        is configured AND the topology has same-group peers to use it
+        on, else ``tcp``.  Replicated inputs only (config + handout),
+        so every rank computes the same label — schedule choice stays a
+        collective decision."""
+        if self.wants_shm and len(groups) != len(set(groups)):
+            return "shm"
+        return "tcp"
+
+
+#: poll masks: errors/hangups surface as "readable" so the caller's
+#: next read turns them into a typed LinkError (POLLNVAL covers a fd
+#: closed out from under a racing pump).
+_POLL_RD = select.POLLIN | select.POLLERR | select.POLLHUP | select.POLLNVAL
+
+
+def wait_readable_writable(rlist, wlist, timeout: Optional[float]
+                           ) -> tuple[list, list]:
+    """One bounded readiness wait over objects with ``fileno()`` —
+    ``select.poll``, NOT ``select.select``: link fds in an fd-heavy
+    host process routinely exceed FD_SETSIZE, and the transport layer
+    must degrade to a LinkError, never a ValueError crash.  Not an
+    epoll selector either: shm waits call this once per 2 ms slice, and
+    a poll object costs no kernel fd and no per-call register/close
+    syscalls.  Returns (readable, writable)."""
+    poller = select.poll()
+    by_fd: dict = {}
+    for obj in rlist:
+        fd = obj.fileno()
+        if fd < 0:
+            raise ValueError(f"wait on closed fd ({fd})")
+        by_fd[fd] = obj
+        ev = _POLL_RD
+        if obj in wlist:
+            ev |= select.POLLOUT
+        poller.register(fd, ev)
+    for obj in wlist:
+        fd = obj.fileno()
+        if fd < 0:
+            raise ValueError(f"wait on closed fd ({fd})")
+        if fd not in by_fd:
+            by_fd[fd] = obj
+            poller.register(fd, select.POLLOUT | select.POLLERR
+                            | select.POLLHUP | select.POLLNVAL)
+    # Ceil to whole ms: a sub-ms slice must sleep, not busy-poll.
+    ms = None if timeout is None else max(0, math.ceil(timeout * 1000))
+    readable, writable = [], []
+    for fd, ev in poller.poll(ms):
+        obj = by_fd[fd]
+        err = ev & (select.POLLERR | select.POLLHUP | select.POLLNVAL)
+        if obj in rlist and (ev & select.POLLIN or err):
+            readable.append(obj)
+        if obj in wlist and (ev & select.POLLOUT or err):
+            writable.append(obj)
+    return readable, writable
 
 
 def setup_stream_socket(sock: socket.socket, timeout: Optional[float],
@@ -171,10 +276,12 @@ class Link:
     * **pump** — bracketed by ``pump_begin``/``pump_end``, the
       non-blocking ``poll_sendv``/``poll_recv`` primitives plus
       ``rx_pending``/``tx_pending``/``fileno`` that the generic
-      multi-link pumps (the reference's ``transport/pump.py``) multiplex
-      over.  ``rx_pending()`` must be True only when ``poll_recv``
-      WILL make progress without new wire bytes, or the pump would
-      busy-spin.
+      multi-link pumps (:mod:`rabit_tpu_torch.transport.pump`)
+      multiplex over.  ``rx_pending()`` must be True only when
+      ``poll_recv`` WILL make progress without new wire bytes, or the
+      pump would busy-spin; ``needs_poll()`` marks transports whose
+      readiness a plain ``poll`` cannot fully see (shm rings), bounding
+      the pump's wait slices.
     """
 
     kind = "?"
@@ -229,6 +336,21 @@ class Link:
     def tx_pending(self) -> bool:
         return False
 
+    def needs_poll(self) -> bool:
+        return False
+
+    def drain_wakeups(self) -> None:
+        """Consume queued doorbell bytes (shm); no-op elsewhere."""
+
+    def arm_wait(self, rx: bool) -> None:
+        """Advertise an imminent blocking wait for data (``rx``) or
+        space (``not rx``) so the peer knows a wakeup is wanted (shm
+        waiter flags); no-op elsewhere.  Callers must re-check
+        readiness after arming and ``disarm_wait`` afterwards."""
+
+    def disarm_wait(self, rx: bool) -> None:
+        pass
+
     def fileno(self) -> int:
         raise NotImplementedError
 
@@ -243,8 +365,9 @@ class Link:
         raise NotImplementedError
 
     # -- shared raise helper -------------------------------------------
-    def _fail(self, msg: str, cause: Optional[BaseException] = None):
-        err = LinkError(msg)
+    def _fail(self, msg: str, cause: Optional[BaseException] = None,
+              cls=LinkError):
+        err = cls(msg)
         err.link = self
         if cause is not None:
             raise err from cause

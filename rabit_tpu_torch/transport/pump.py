@@ -1,38 +1,37 @@
 """Transport-generic multi-link progress pumps.
 
 PyTorch-port counterpart of :mod:`rabit_tpu.transport.pump` (its own
-copy: the port imports nothing of the JAX package), for the port's TCP
-links.  The engine's deadlock-sensitive concurrent IO patterns —
-full-duplex ring exchange, the tree's multi-child drain and the hop
-pipeline — are written against the
-:class:`~rabit_tpu_torch.transport.base.Link` pump interface: poll every
-involved link, and only when NOTHING progressed wait on the links' fds.
+copy: the port imports nothing of the JAX package).  The engine's
+deadlock-sensitive concurrent IO patterns — full-duplex ring exchange,
+the tree's multi-child drain and the hop pipeline — are written against
+the :class:`~rabit_tpu_torch.transport.base.Link` pump interface, so a
+ring step between two shm peers, two TCP peers, or one of each runs the
+same loop: poll every involved link, and only when NOTHING progressed
+wait on the links' fds.  Shm links bound the wait to a short slice
+(``needs_poll``): their ring state is not fully visible to ``poll``, so
+the pump re-polls at millisecond granularity as the lost-wakeup safety
+net while the doorbell fd provides the common-case wakeup.
 
 Byte streams are unchanged from the reference's loops: payload is
 consumed in arrival order per link, send windows are whatever the
-kernel accepts, and the timeout is an IDLE bound — it re-arms on every
-byte of progress.  The reference's wait also serves shared-memory links
-(bounded poll slices, doorbell wakeups); the port has none, so its
-:func:`_wait` is one readiness wait over the links' fds (ROADMAP A8
-brings the shm pieces).
+kernel (or ring) accepts, and the timeout is an IDLE bound — it re-arms
+on every byte of progress.
 """
 from __future__ import annotations
 
-import math
-import select
 import time
 from typing import Optional
 
-from rabit_tpu_torch.transport.base import Link, LinkError, flatten_parts
-
-_POLL_RD = select.POLLIN | select.POLLERR | select.POLLHUP | select.POLLNVAL
-_POLL_WR = select.POLLOUT | select.POLLERR | select.POLLHUP | select.POLLNVAL
+from rabit_tpu_torch.transport.base import (Link, LinkError, flatten_parts,
+                                            wait_readable_writable)
+from rabit_tpu_torch.transport.shm import WAIT_SLICE_SEC
 
 
 def _timeout_error(links: list[Link], msg: str) -> LinkError:
     """Build the idle-timeout error, health-probing the stalled links
-    first: a link that is structurally dead gets the blame — with
-    ``err.link`` attribution — instead of an anonymous timeout."""
+    first: a link that is structurally dead (ctrl EOF, lost ring
+    magic) gets the blame — with ``err.link`` attribution, so the
+    engine's failover hook fires — instead of an anonymous timeout."""
     for link in links:
         try:
             ok = link.healthy()
@@ -48,41 +47,52 @@ def _timeout_error(links: list[Link], msg: str) -> LinkError:
 
 def _wait(rlinks: list[Link], wlinks: list[Link],
           deadline: Optional[float], timeout_msg: str) -> None:
-    """Block until some link is plausibly ready.  Raises LinkError once
-    the idle deadline expires.  ``poll(2)``, not ``select(2)``: link fds
-    in an fd-heavy process may exceed FD_SETSIZE, and the transport must
-    degrade to a LinkError, never a ValueError crash."""
+    """Block until some link is plausibly ready (or a slice passes).
+    Raises LinkError once the idle deadline expires."""
     now = time.monotonic()
     if deadline is not None and now >= deadline:
         raise _timeout_error(rlinks + wlinks, timeout_msg)
-    for link in rlinks:
-        if link.rx_pending():
-            return
-    if not rlinks and not wlinks:
+    bounded = any(link.needs_poll() for link in rlinks) \
+        or any(link.needs_poll() for link in wlinks)
+    # Shm write-waits watch the doorbell fd for READABLE wakeup bytes
+    # (the reader signals freed space on the same channel).
+    rlist = list(rlinks) + [lk for lk in wlinks
+                            if lk.needs_poll() and lk not in rlinks]
+    wlist = [lk for lk in wlinks if not lk.needs_poll()]
+    wait_sec = None if deadline is None else max(deadline - now, 0.0)
+    if bounded:
+        wait_sec = WAIT_SLICE_SEC if wait_sec is None \
+            else min(wait_sec, WAIT_SLICE_SEC)
+    if not rlist and not wlist:
         return
-    events: dict[int, int] = {}
+    # Waiter flags first, readiness re-check second (the shm sleep
+    # protocol: the peer rings only for an advertised sleeper, and it
+    # may have acted between our poll and the arm).
+    for link in rlinks:
+        link.arm_wait(rx=True)
+    for link in wlinks:
+        link.arm_wait(rx=False)
     try:
         for link in rlinks:
-            fd = link.fileno()
-            events[fd] = events.get(fd, 0) | _POLL_RD
+            if link.rx_pending():
+                return
+        try:
+            readable, writable = wait_readable_writable(rlist, wlist,
+                                                        wait_sec)
+        except (OSError, ValueError) as e:
+            raise LinkError(f"{timeout_msg.split(':')[0]}: wait "
+                            f"failed: {e}") from e
+        if deadline is not None and not bounded \
+                and not readable and not writable:
+            # poll blocked the full remaining idle budget, no event
+            raise _timeout_error(rlinks + wlinks, timeout_msg)
+        for link in rlist:
+            link.drain_wakeups()
+    finally:
+        for link in rlinks:
+            link.disarm_wait(rx=True)
         for link in wlinks:
-            fd = link.fileno()
-            events[fd] = events.get(fd, 0) | _POLL_WR
-        if any(fd < 0 for fd in events):
-            raise ValueError("wait on a closed fd")
-        poller = select.poll()
-        for fd, ev in events.items():
-            poller.register(fd, ev)
-        # Ceil to whole ms: a sub-ms remainder must sleep, not spin.
-        ms = (None if deadline is None
-              else max(0, math.ceil((deadline - now) * 1000)))
-        ready = poller.poll(ms)
-    except (OSError, ValueError) as e:
-        raise LinkError(f"{timeout_msg.split(':')[0]}: wait "
-                        f"failed: {e}") from e
-    if deadline is not None and not ready:
-        # poll blocked the full remaining idle budget, no event
-        raise _timeout_error(rlinks + wlinks, timeout_msg)
+            link.disarm_wait(rx=False)
 
 
 def _end_all(begun: list[Link], suppress: bool) -> None:

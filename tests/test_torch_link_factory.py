@@ -1,7 +1,8 @@
-"""The port's link handshake (``LinkFactory``, TCP path) against
-rabit_tpu's: the classic hello, the feature hello and its negotiation,
-byte for byte, over loopback pairs in two threads — port with port,
-and port with reference in both directions."""
+"""The port's link handshake (``LinkFactory``) against rabit_tpu's: the
+classic hello, the feature hello and its negotiation, byte for byte,
+over loopback pairs in two threads — port with port, and port with
+reference in both directions, TCP and shm (tests/test_torch_shm.py has
+the rest of the shm path)."""
 import socket
 import threading
 
@@ -44,14 +45,15 @@ def tcp_pair():
 
 
 def factory(pkg, rank, log=None, groups=(), **cfg):
-    """A link factory of either package as rank ``rank``; the reference's
-    also takes a logger and its host groups (the port's logs to stderr
-    and has no use for groups without shm)."""
+    """A link factory of either package as rank ``rank`` in host groups
+    ``groups``; the reference's also takes a logger (the port's logs to
+    stderr)."""
     if pkg == "torch":
-        return tfactory.LinkFactory(tbase.TransportConfig(**cfg), rank,
-                                    timeout=TIMEOUT)
-    f = jfactory.LinkFactory(jbase.TransportConfig(**cfg), timeout=TIMEOUT,
-                             log=log)
+        f = tfactory.LinkFactory(tbase.TransportConfig(**cfg),
+                                 timeout=TIMEOUT)
+    else:
+        f = jfactory.LinkFactory(jbase.TransportConfig(**cfg),
+                                 timeout=TIMEOUT, log=log)
     f.set_topology(rank, list(groups))
     return f
 
@@ -184,13 +186,15 @@ def test_dial_and_accept_bytes_match(integrity):
 @pytest.mark.parametrize("ref_side", ["dialer", "acceptor"])
 def test_reference_shm_offer_gets_tcp(ref_side):
     """A reference peer configured for shm in the same host group offers
-    ``shm:<bytes>``; the port never offers it, so the intersection is the
-    integrity mode alone and both ends build a framed TCP link."""
+    ``shm:<bytes>``; a port peer left at ``rabit_transport=tcp`` does not,
+    so the intersection is the integrity mode alone and both ends build
+    a framed TCP link."""
     ref = factory("jax", 0 if ref_side == "dialer" else 1, groups=[0, 0],
                   transport="shm", integrity="crc32c")
     port = factory("torch", 1 if ref_side == "dialer" else 0,
                    integrity="crc32c")
     assert "shm" in ref._offer(port.rank)
+    assert "shm" not in port._offer(ref.rank)
     pair = (ref, port) if ref_side == "dialer" else (port, ref)
     x, y, _ = handshake(*pair)
     try:
@@ -202,14 +206,51 @@ def test_reference_shm_offer_gets_tcp(ref_side):
         y.close()
 
 
+@pytest.mark.parametrize("ref_side", ["dialer", "acceptor"])
+def test_reference_shm_offer_gets_shm(ref_side, tmp_path):
+    """A port peer configured for shm in the same host group meets the
+    reference's ``shm:<bytes>`` offer: both ends build a framed shm link
+    over rings one of them made, and bytes cross both ways."""
+    kw = dict(transport="shm", integrity="crc32c", shm_dir=str(tmp_path))
+    ref = factory("jax", 0 if ref_side == "dialer" else 1, groups=[0, 0],
+                  **kw)
+    port = factory("torch", 1 if ref_side == "dialer" else 0,
+                   groups=[0, 0], **kw)
+    assert port._offer(ref.rank) == ref._offer(port.rank)
+    pair = (ref, port) if ref_side == "dialer" else (port, ref)
+    x, y, _ = handshake(*pair)
+    try:
+        for link in (x, y):
+            assert link.kind == "shm" and link._frames
+        exchange(x, y)
+        assert list(tmp_path.iterdir()) == []   # the dialer unlinked them
+    finally:
+        x.close()
+        y.close()
+
+
 @pytest.mark.parametrize("transport", ["shm", "auto"])
 def test_shm_config_raises_in_the_port(transport):
-    jbase.TransportConfig(transport=transport)      # the reference takes it
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tbase.TransportConfig(transport=transport)
-    with pytest.raises(RabitError, match="rabit_transport must be one of"):
-        tbase.TransportConfig(transport="rdma")
+    """The port takes ``rabit_transport=shm``/``auto`` with the shm
+    fields, and raises where the reference raises: a ring under
+    ``SHM_RING_MIN``, negative re-reads, an unknown transport."""
+    for pkg_base in (jbase, tbase):
+        cfg = pkg_base.TransportConfig(transport=transport)
+        assert (cfg.wants_shm, cfg.shm_ring_bytes, cfg.failover,
+                cfg.shm_retries, cfg.shm_dir) == (True, 1 << 20, True, 3,
+                                                  None)
+        assert cfg.mode_label([0, 0, 1]) == "shm"
+        assert cfg.mode_label([0, 1, 2]) == "tcp"
+        assert tbase.SHM_RING_MIN == jbase.SHM_RING_MIN == 4096
+        pkg_base.TransportConfig(transport=transport, shm_ring_bytes=4096)
+        for bad in (dict(shm_ring_bytes=4095), dict(shm_retries=-1),
+                    dict(transport="rdma")):
+            # each package's own RabitError, with the same message
+            with pytest.raises(Exception, match="^rabit_") as info:
+                pkg_base.TransportConfig(**{"transport": transport, **bad})
+            assert info.type.__name__ == "RabitError"
     assert tbase.TransportConfig().transport == "tcp"
+    assert not tbase.TransportConfig().wants_shm
 
 
 def test_bad_link_magic_fails_the_handshake():

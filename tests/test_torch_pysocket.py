@@ -460,7 +460,6 @@ def test_live_schedule_directive_is_refused():
     ("rabit_trace_sample", "4", "A8"), ("rabit_trace_dir", "trace", "A8"),
     ("rabit_directory", "127.0.0.1:1", "A8"),
     ("rabit_link_mbps", "100", "A8"),
-    ("rabit_transport", "shm", "A8"),
 ])
 def test_unported_knobs_raise(key, value, item):
     """Each knob outside the slice, set to anything but its off value,
@@ -478,12 +477,25 @@ def test_off_values_are_accepted_and_bad_values_checked():
                rabit_connect_retries=0)
     with pytest.raises(TrackerLostError):      # got as far as dialing
         eng.init(_stub_params(1, **off))
+    # the shm transport's knobs are served (A8b)
+    served = dict(rabit_transport="shm", rabit_shm_ring_bytes="64KB",
+                  rabit_transport_failover="off", rabit_shm_retries=0,
+                  rabit_shm_dir="/nonexistent", rabit_connect_retries=0)
+    eng = PySocketEngine()
+    with pytest.raises(TrackerLostError):
+        eng.init(_stub_params(1, **served))
+    cfg = eng._lf.cfg
+    assert (cfg.transport, cfg.shm_ring_bytes, cfg.failover,
+            cfg.shm_retries, cfg.shm_dir) == ("shm", 65536, False, 0,
+                                              "/nonexistent")
     from rabit_tpu_torch.utils import RabitError
 
     for bad in (dict(rabit_sched="bogus"), dict(rabit_pipeline_depth=65),
                 dict(rabit_pipeline_depth=0), dict(rabit_wire_dtype="fp8"),
                 dict(rabit_connect_retries=-1),
-                dict(rabit_job_id="../etc")):
+                dict(rabit_job_id="../etc"), dict(rabit_transport="rdma"),
+                dict(rabit_shm_ring_bytes="1KB"),
+                dict(rabit_shm_retries=-1)):
         with pytest.raises(RabitError):
             PySocketEngine().init(_stub_params(1, **bad))
 
